@@ -7,7 +7,7 @@ Phases, each printing one JSON line:
 
 1. ``card``: the card's name and power limit (``nvidia-smi``), and what
    PyTorch sees.
-2. ``build``: compile every kernel source of the port with ``nvcc``
+2. ``build``: compile the port's kernel source with ``nvcc``
    (``-Xptxas -v`` report included) and time it.
 3. ``kernel``: hold the wave-replay kernel (K1) against its plain PyTorch
    version on the same CUDA tensors, one phase per branch: AlexNet's five
@@ -22,8 +22,9 @@ Phases, each printing one JSON line:
 5. ``timing``: per AlexNet layer at batch 8, the kernel's median time,
    the plain version's, cuDNN's ``conv2d + bias + ReLU + max_pool2d``
    (``library_ms``, a yardstick the port never calls) and the bound; the
-   served images per second; and, from ``torch.profiler`` over one served
-   run, the device time by kernel and the device's idle share.
+   served images per second over windows of at least a second; and, from
+   ``torch.profiler`` over served runs, the device time by kernel, the
+   device's idle share and the host time by operation.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits nonzero before the
@@ -44,14 +45,13 @@ sys.path.insert(0, str(ROOT / "src"))
 BATCH = 8
 REQUESTS = 32
 
-# Published peaks (NVIDIA data sheets; dense, fp32 outside the tensor
-# cores; memory bandwidth), keyed by a substring of the card's name.
-PEAKS = {
-    "H100 PCIe": (51.2e12, 2.0e12),
-    "H100 NVL": (60.0e12, 3.9e12),
-    "H100": (67.0e12, 3.35e12),       # SXM
-    "H200": (67.0e12, 4.8e12),
-}
+# The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): fp32
+# outside the tensor cores, and memory bandwidth.
+H100_SXM = "H100 80GB HBM3"
+FP32_PEAK_FLOPS = 67.0e12
+MEM_BYTES_PER_S = 3.35e12
+SERVE_WINDOW_S = 1.0    # each served-rate window lasts at least this long
+SERVE_WINDOWS = 3
 
 
 def emit(phase: str, **kw) -> None:
@@ -64,10 +64,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    raise RuntimeError(f"no published peaks for card {name!r}")
+    if H100_SXM not in name:
+        raise RuntimeError(f"the bounds use the H100 SXM's peaks; this "
+                           f"card is {name!r}")
+    return FP32_PEAK_FLOPS, MEM_BYTES_PER_S
 
 
 def median_ms(fn, groups: int = 7, per_group: int = 10,
@@ -138,12 +138,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    report = _build.build_all()
+    report = _build.build("wave_replay")
     emit("build", seconds=time.perf_counter() - t0,
-         sources={k: {"seconds": v["seconds"],
-                      "ptxas": [ln for ln in v["log"].splitlines()
-                                if "registers" in ln or "spill" in ln]}
-                  for k, v in report.items()})
+         nvcc_seconds=report["seconds"],
+         ptxas=[ln for ln in report["log"].splitlines()
+                if "registers" in ln or "spill" in ln])
 
     # 3. the kernel against its plain version, one phase per branch
     gen = torch.Generator().manual_seed(0)
@@ -288,30 +287,51 @@ def main() -> int:
                          achieved_tflops=flops / ms / 1e9,
                          launches_per_forward=1))
         emit("timing", **rows[-1], nvidia_smi=smi)
-    serve_s = []
-    for _ in range(3):
+    # served rate: windows of whole 32-request runs lasting at least
+    # SERVE_WINDOW_S each, back to back
+    windows = []
+    for _ in range(SERVE_WINDOWS):
+        runs = 0
         t0 = time.perf_counter()
-        serve()
-        serve_s.append(time.perf_counter() - t0)
-    img_s = REQUESTS / statistics.median(serve_s)
-    # where one served run's time goes: device time by kernel over the
-    # run's wall time (the rest is the device waiting on the host)
+        while time.perf_counter() - t0 < SERVE_WINDOW_S:
+            serve()
+            runs += 1
+        dt = time.perf_counter() - t0
+        windows.append({"seconds": dt, "requests": runs * REQUESTS,
+                        "img_per_s": runs * REQUESTS / dt})
+    rates = [w["img_per_s"] for w in windows]
+    # where served time goes, under torch.profiler over four runs: device
+    # time by kernel over the wall time (the rest the device waits on the
+    # host), and the host's time by operation (self time; what no
+    # operation holds is Python between operations)
+    profiled_runs = 4
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve()
+        for _ in range(profiled_runs):
+            serve()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {e.key: e.self_device_time_total / 1e3
-                 for e in prof.key_averages()
+    events = prof.key_averages()
+    by_kernel = {e.key: e.self_device_time_total / 1e3 for e in events
                  if e.device_type == DeviceType.CUDA
                  and e.self_device_time_total > 0}
+    by_op = {e.key: e.self_cpu_time_total / 1e3 for e in events
+             if e.device_type == DeviceType.CPU
+             and e.self_cpu_time_total > 0}
     busy_ms = sum(by_kernel.values())
-    emit("timing", served_img_per_s=img_s, batch=BATCH, requests=REQUESTS,
-         runs_s=serve_s, profiled_wall_ms=wall_ms,
+    host_ops_ms = sum(by_op.values())
+    emit("timing", served_img_per_s=statistics.median(rates),
+         served_img_per_s_min=min(rates), served_img_per_s_max=max(rates),
+         windows=windows, batch=BATCH, requests_per_run=REQUESTS,
+         profiled_requests=profiled_runs * REQUESTS,
+         profiled_wall_ms=wall_ms,
          device_busy_ms=busy_ms if by_kernel else None,
          device_idle_share=1 - busy_ms / wall_ms if by_kernel else None,
          device_ms_by_kernel=dict(sorted(by_kernel.items(),
                                          key=lambda kv: -kv[1])[:8]),
+         host_ops_ms=host_ops_ms, host_between_ops_ms=wall_ms - host_ops_ms,
+         host_ms_by_op=dict(sorted(by_op.items(),
+                                   key=lambda kv: -kv[1])[:10]),
          nvidia_smi=smi)
 
     total = {k: sum(r[k] for r in rows)

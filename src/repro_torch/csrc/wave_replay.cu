@@ -42,7 +42,7 @@
 // Must match kernel.py::GEOM_FIELDS field for field.
 struct Geom {
   int batch, pad_h, pad_w, in_c, k, stride, w_in, out_c, fan, groups, opg;
-  int n_chain, n_tiles, tiles_w, blk_h, blk_w, acc_h, acc_w;
+  int n_chain, n_tiles, blk_h, blk_w, acc_h, acc_w;
   int out_h_pad, out_w_pad, pool, ps, relu, residual, depthwise;
   int cta_ph, cta_pw, cta_ch, cta_cw, blocks_h, blocks_w, ch_tiles;
 };
@@ -59,7 +59,8 @@ constexpr int kLoadsA = kBM * kBK / kThreads;   // 4
 constexpr int kLoadsB = kBN * kBK / kThreads;   // 4
 
 // Table columns (core/schedule.py OP_*).
-constexpr int kIY = 0, kIX = 1, kC0 = 4, kWC0 = 5, kVR = 6, kVC = 7;
+constexpr int kIY = 0, kIX = 1, kTY = 2, kTX = 3, kC0 = 4, kWC0 = 5,
+              kVR = 6, kVC = 7;
 
 __global__ void __launch_bounds__(kThreads)
 replay_gemm(Geom g, const float* __restrict__ x, const float* __restrict__ w,
@@ -152,9 +153,10 @@ replay_gemm(Geom g, const float* __restrict__ x, const float* __restrict__ w,
     }
   }
 
-  // Epilogue: bias, residual, ReLU, pool, masked write.
-  const int tile_y = t / g.tiles_w, tile_x = t % g.tiles_w;
+  // Epilogue: bias, residual, ReLU, pool, masked write, at the block
+  // (TY, TX) and under the mask (VR, VC) of the tile's last chain row.
   const int* last = table + ((g.n_chain - 1) * g.n_tiles + t) * 8;
+  const int tile_y = last[kTY], tile_x = last[kTX];
   const int vr = last[kVR], vc = last[kVC];
   if (g.pool == 1) {
 #pragma unroll
@@ -202,24 +204,29 @@ replay_gemm(Geom g, const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// One thread per element of the padded output; used for depthwise layers.
+// One thread per element of each tile's output block (image, tile, row,
+// column, channel), placed by the tile's (TY, TX); used for depthwise
+// layers. The blocks cover the padded output exactly.
 __global__ void __launch_bounds__(kThreads)
 replay_direct(Geom g, const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ bias, const int* __restrict__ table,
               const float* __restrict__ res, float* __restrict__ out) {
-  const long total = (long)g.batch * g.out_h_pad * g.out_w_pad * g.out_c;
-  const long idx = (long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int co = idx % g.out_c;
-  long rest = idx / g.out_c;
-  const int ox = rest % g.out_w_pad;
-  rest /= g.out_w_pad;
-  const int oy = rest % g.out_h_pad;
-  const int b = rest / g.out_h_pad;
-  const int tile_y = oy / g.blk_h, r = oy % g.blk_h;
-  const int tile_x = ox / g.blk_w, c = ox % g.blk_w;
-  const int t = tile_y * g.tiles_w + tile_x;
+  const long total =
+      (long)g.batch * g.n_tiles * g.blk_h * g.blk_w * g.out_c;
+  const long e = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int co = e % g.out_c;
+  long rest = e / g.out_c;
+  const int c = rest % g.blk_w;
+  rest /= g.blk_w;
+  const int r = rest % g.blk_h;
+  rest /= g.blk_h;
+  const int t = rest % g.n_tiles;
+  const int b = rest / g.n_tiles;
   const int* last = table + ((g.n_chain - 1) * g.n_tiles + t) * 8;
+  const int oy = last[kTY] * g.blk_h + r, ox = last[kTX] * g.blk_w + c;
+  const long idx =
+      ((long)(b * g.out_h_pad + oy) * g.out_w_pad + ox) * g.out_c + co;
   if (r >= last[kVR] || c >= last[kVC]) {
     out[idx] = 0.f;
     return;
@@ -260,7 +267,8 @@ extern "C" int wave_replay_f32(const Geom* g, const float* x, const float* w,
                                const float* res, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g->depthwise) {
-    const long total = (long)g->batch * g->out_h_pad * g->out_w_pad * g->out_c;
+    const long total =
+        (long)g->batch * g->n_tiles * g->blk_h * g->blk_w * g->out_c;
     const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
     replay_direct<<<blocks, kThreads, 0, s>>>(*g, x, w, bias, table, res, out);
   } else {

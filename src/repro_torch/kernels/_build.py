@@ -1,11 +1,10 @@
 """Build the package's CUDA sources at first use and load them.
 
-Every ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface under ``build/repro_torch/`` at the root of the
-checkout, named by a hash of its source, the headers beside it and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
-All sources that need a build compile in parallel, one ``nvcc`` each.
-The libraries are loaded with ``ctypes``; callers declare ``argtypes``.
+``csrc/<stem>.cu`` compiles with ``nvcc`` into a shared library with a
+plain C interface under ``build/repro_torch/`` at the root of the
+checkout, named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads at once. The library is
+loaded with ``ctypes``; callers declare ``argtypes``.
 """
 from __future__ import annotations
 
@@ -35,54 +34,38 @@ def nvcc_path() -> str:
                        "build on a machine with the CUDA toolkit")
 
 
-def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
-        h.update(hdr.read_bytes())
+def _target(stem: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, dict]:
-    """Compile every source whose library is missing, all at once.
+def build(stem: str) -> dict:
+    """Compile ``csrc/<stem>.cu`` unless its library exists.
 
-    Returns, per source stem, the build's seconds (0 when it was already
-    built) and the compiler's report (``-Xptxas -v``: registers, shared
-    memory and spills per kernel). Raises on a failed build.
+    Returns the build's seconds (0 when it was already built) and the
+    compiler's report (``-Xptxas -v``: registers, shared memory and
+    spills per kernel). Raises on a failed build.
     """
+    out = _target(stem)
+    if out.exists():
+        return {"seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
-    procs = {}
-    report = {}
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    for src in sorted(CSRC.glob("*.cu")):
-        out = _target(src)
-        if out.exists():
-            report[src.stem] = {"seconds": 0.0, "log": ""}
-            continue
-        nvcc = nvcc or nvcc_path()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[src.stem] = (tmp, out, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for stem, (tmp, out, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            failed.append(f"{stem}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)        # atomic: concurrent builders agree
-        report[stem] = {"seconds": time.perf_counter() - t0, "log": log}
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return report
+    p = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                        str(CSRC / f"{stem}.cu")],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {stem}.cu:\n{p.stdout}")
+    os.replace(tmp, out)            # atomic: concurrent builders agree
+    return {"seconds": time.perf_counter() - t0, "log": p.stdout}
 
 
 def library(stem: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu``, built if needed."""
     if stem not in _loaded:
-        out = _target(CSRC / f"{stem}.cu")
-        if not out.exists():
-            build_all()
-        _loaded[stem] = ctypes.CDLL(str(out))
+        build(stem)
+        _loaded[stem] = ctypes.CDLL(str(_target(stem)))
     return _loaded[stem]

@@ -9,6 +9,10 @@ other device, or a launch the CUDA runtime refuses, raises.
 
 ``launch_geometry`` is the host half of the kernel's design: how each
 TPU tile's output block is cut into CTAs (see the note in the source).
+
+``launches`` counts launches of the hand-written kernel, one where the
+launch succeeds and nowhere else; ``plain_calls`` counts the plain
+version's runs on CPU tensors, which launch nothing.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ CTA_CHANNELS = 64
 GEOM_FIELDS = (
     "batch", "pad_h", "pad_w", "in_c", "k", "stride", "w_in", "out_c",
     "fan", "groups", "opg",
-    "n_chain", "n_tiles", "tiles_w", "blk_h", "blk_w", "acc_h", "acc_w",
+    "n_chain", "n_tiles", "blk_h", "blk_w", "acc_h", "acc_w",
     "out_h_pad", "out_w_pad", "pool", "ps", "relu", "residual", "depthwise",
     "cta_ph", "cta_pw", "cta_ch", "cta_cw", "blocks_h", "blocks_w",
     "ch_tiles")
@@ -39,6 +43,26 @@ GEOM_FIELDS = (
 
 class Geom(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in GEOM_FIELDS]
+
+
+launches = 0
+plain_calls = 0
+
+
+def launch_count() -> int:
+    """Launches of the CUDA kernel since ``reset_launch_count``."""
+    return launches
+
+
+def plain_count() -> int:
+    """Runs of the plain version on CPU tensors since
+    ``reset_launch_count``."""
+    return plain_calls
+
+
+def reset_launch_count() -> None:
+    global launches, plain_calls
+    launches = plain_calls = 0
 
 
 def cta_block(kp: KernelProgram) -> "tuple[int, int]":
@@ -74,7 +98,7 @@ def launch_geometry(kp: KernelProgram, batch: int) -> Geom:
         batch=batch, pad_h=kp.pad_h, pad_w=kp.pad_w, in_c=kp.in_c_kpad,
         k=l.kernel, stride=l.stride, w_in=kp.w_in_kpad, out_c=kp.out_c_pad,
         fan=kp.fan_width, groups=kp.groups, opg=opg,
-        n_chain=kp.n_chain, n_tiles=kp.n_tiles, tiles_w=kp.tiles_w,
+        n_chain=kp.n_chain, n_tiles=kp.n_tiles,
         blk_h=kp.blk_h, blk_w=kp.blk_w, acc_h=kp.acc_h, acc_w=kp.acc_w,
         out_h_pad=kp.out_h_pad, out_w_pad=kp.out_w_pad, pool=kp.pool,
         ps=kp.pool_stride, relu=int(kp.relu), residual=int(kp.residual),
@@ -145,8 +169,10 @@ def wave_replay_raw(kp: KernelProgram, x: torch.Tensor, w: torch.Tensor,
     Returns the padded (B, out_h_pad, out_w_pad, out_c_pad) fp32 output;
     masked lanes are exact zeros.
     """
+    global launches, plain_calls
     _check(kp, x, w, b, table, residual)
     if x.device.type == "cpu":
+        plain_calls += 1
         return wave_replay_plain(kp, x, w, b, table, residual)
     if x.device.type != "cuda":
         raise ValueError(f"wave_replay runs on cuda (kernel) or cpu (plain "
@@ -178,4 +204,5 @@ def wave_replay_raw(kp: KernelProgram, x: torch.Tensor, w: torch.Tensor,
         raise KernelLaunchError(
             f"{kp.wave.program.layer.name}: wave_replay_f32 launch failed "
             f"with cudaError {err}")
+    launches += 1
     return out

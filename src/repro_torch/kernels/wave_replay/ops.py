@@ -5,8 +5,10 @@ input, per-group HWIO weights, optional bias), pads them to the
 KernelProgram's buffer geometry, launches the kernel ONCE, and crops the
 valid output — the whole streamed layer in a single launch.
 
-``launches`` counts those launches: one per ``wave_replay_layer`` call,
-which on a CUDA tensor is exactly one launch of the hand-written kernel.
+``launch_count()`` reads the launcher's count of launches of the
+hand-written kernel (one per ``wave_replay_layer`` call on a CUDA
+tensor); ``plain_count()`` its count of plain-version runs on CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -16,35 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.schedule import KernelProgram
-from repro_torch.kernels.wave_replay.kernel import wave_replay_raw
-
-
-class LaunchCounter:
-    """A plain count of kernel launches, read and reset by the caller."""
-
-    def __init__(self):
-        self._count = 0
-
-    def record(self) -> None:
-        self._count += 1
-
-    def count(self) -> int:
-        return self._count
-
-    def reset(self) -> None:
-        self._count = 0
-
-
-launches = LaunchCounter()
-
-
-def launch_count() -> int:
-    """Megakernel launches since ``reset_launch_count``."""
-    return launches.count()
-
-
-def reset_launch_count() -> None:
-    launches.reset()
+from repro_torch.kernels.wave_replay.kernel import (  # noqa: F401
+    launch_count, plain_count, reset_launch_count, wave_replay_raw)
 
 
 def pad_input(kp: KernelProgram, x: torch.Tensor) -> torch.Tensor:
@@ -112,5 +87,4 @@ def wave_replay_layer(kp: KernelProgram, x: torch.Tensor, w: torch.Tensor,
     xp, wp, bias = pad_operands(kp, x, w, b)
     rp = pad_residual(kp, residual) if kp.residual else None
     y = wave_replay_raw(kp, xp, wp, bias, table, residual=rp)
-    launches.record()
     return y[:, :kp.out_h, :kp.out_w, :l.out_c]

@@ -17,7 +17,7 @@ import time
 import torch
 
 from repro_torch.core.model_zoo import network_graph
-from repro_torch.kernels.wave_replay.ops import (launch_count,
+from repro_torch.kernels.wave_replay.ops import (launch_count, plain_count,
                                                  reset_launch_count)
 from repro_torch.launch.session import StreamingSession, resolve_device
 from repro_torch.models.cnn import init_graph_weights
@@ -58,6 +58,7 @@ def cnn_main(args) -> None:
           f"({args.requests / dt:.1f} img/s) on {device}, "
           f"compiles={sess.compile_count}, batched calls={calls}, "
           f"kernel launches={launch_count()} "
+          f"plain-version runs={plain_count()} "
           f"({len(sess.programs)} per call)")
     print(sess.describe())
 

@@ -30,7 +30,7 @@ from repro_torch.core.schedule import TileProgram
 from repro_torch.core.streaming import (check_mode, compile_graph,
                                         graph_forward_fn, graph_operands,
                                         plan_graph)
-from repro_torch.kernels.wave_replay.ops import launch_count
+from repro_torch.kernels.wave_replay.ops import launch_count, plain_count
 from repro_torch.runtime.errors import DeadlineExceeded, Overloaded
 
 # Session options of the reference that this package does not run yet.
@@ -282,6 +282,7 @@ class StreamingSession:
                 "compiles": self.compile_count,
                 "calls": self.calls,
                 "kernel_launches": launch_count(),
+                "plain_calls": plain_count(),
             },
             "pending": len(self._pending),
             "executables": len(self._executables),
