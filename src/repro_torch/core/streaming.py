@@ -1,12 +1,13 @@
 """Streaming graph executor, megakernel mode (paper §3 + §5 combined).
 
-The counterpart of ``repro/core/streaming.py`` for the fp32 megakernel
-graph path: every conv node of a ``NetworkGraph`` is planned
-(``plan_graph``), lowered to a ``TileProgram`` (``compile_graph``) and
-then to a ``KernelProgram`` re-planned at the kernel's budget point
-(``graph_kernel_programs``), and the forward walks the validated
-topological schedule with ONE launch of the wave-replay kernel per conv
-node (kernels/wave_replay). Residual adds that ``residual_fusion``
+The counterpart of ``repro/core/streaming.py`` for the megakernel graph
+path at fp32 (kernel K1) and int8 (kernel K3, the same tables): every
+conv node of a ``NetworkGraph`` is planned (``plan_graph``), lowered to a
+``TileProgram`` (``compile_graph``) and then to a ``KernelProgram``
+re-planned at the kernel's budget point (``graph_kernel_programs``), and
+the forward walks the validated topological schedule with ONE launch of
+the wave-replay kernel per conv node (kernels/wave_replay and
+kernels/wave_replay_q). Residual adds that ``residual_fusion``
 selects run in the producing conv's kernel epilogue; the others run as
 explicit elementwise adds. Activations are dropped per the graph's
 liveness plan the moment their last consumer has fired.
@@ -42,19 +43,19 @@ _NOT_PORTED = {
     "scan": "queue 1 item 2 (layer executors without custom kernels)",
     "jit": "queue 1 item 2 (layer executors without custom kernels)",
     "interpret": "queue 1 item 2 (layer executors without custom kernels)",
-    "graphkernel": "queue 1 item 6 (whole-graph mode, kernel K2)",
+    "graphkernel": "queue 1 item 6 (whole-graph mode, kernels K2/K4)",
 }
 
 
 def check_mode(mode: str, precision: str = "fp32") -> None:
     """Raise for an executor mode or precision this package cannot run."""
-    if precision == "int8":
-        raise NotImplementedError(
-            "precision='int8' is not ported yet: ROADMAP queue 1 item 5 "
-            "(quantized datapath, kernel K3)")
-    if precision != "fp32":
+    if precision not in ("fp32", "int8"):
         raise ValueError(f"unknown precision {precision!r} "
                          f"(expected fp32 | int8)")
+    if precision == "int8" and mode not in ("megakernel", "graphkernel"):
+        raise ValueError(
+            "precision='int8' runs on the quantized megakernel only: "
+            "pass mode='megakernel'")
     if mode in _NOT_PORTED:
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet: ROADMAP {_NOT_PORTED[mode]}")
@@ -181,7 +182,8 @@ def graph_operands(graph: NetworkGraph, programs,
 def graph_forward_fn(graph: NetworkGraph, programs,
                      mode: str = "megakernel",
                      vmem_budget: Optional[int] = _VMEM_DEFAULT,
-                     precision: str = "fp32",
+                     precision: str = "fp32", qgraph=None,
+                     dequantize: bool = True,
                      batch: int = 1) -> Callable:
     """Whole-graph forward over pre-lowered programs.
 
@@ -190,8 +192,15 @@ def graph_forward_fn(graph: NetworkGraph, programs,
     (``graph_operands``). Each conv node is one wave-replay launch;
     residual adds fold into the producing conv's epilogue where
     ``residual_fusion`` allows, and run as explicit adds elsewhere.
+
+    ``precision="int8"`` walks the same schedule and replays the same
+    tables on the fixed-point datapath (kernel K3) over a calibrated
+    ``qgraph`` (``quant.calibrate.QuantizedGraph``): ``weights`` are
+    ``qgraph.device_weights(device)``, a float input is quantized at the
+    input's scale (an int8 one is taken as codes), raw int8 flows along
+    every edge, and residual adds are int32 adds with a clip.
+    ``dequantize=False`` returns the raw int8 output.
     """
-    from repro_torch.kernels.wave_replay.ops import wave_replay_layer
     check_mode(mode, precision)
     programs = conv_keyed(graph, programs, "programs")
     sched = topological_schedule(graph)
@@ -199,6 +208,48 @@ def graph_forward_fn(graph: NetworkGraph, programs,
     epi = _graph_epilogues(graph)
     kprogs = graph_kernel_programs(graph, programs, vmem_budget, batch)
     fused_adds = {outv for _, resv, outv in epi.values() if resv is not None}
+
+    if precision == "int8":
+        if qgraph is None:
+            raise ValueError(
+                "precision='int8' needs a calibrated QuantizedGraph: run "
+                "repro_torch.quant.calibrate.calibrate_graph first")
+        from repro_torch.core.quantization import (dequantize_int8,
+                                                   quantize_int8_sym)
+        from repro_torch.kernels.wave_replay_q.kernel import \
+            residual_add_i8
+        from repro_torch.kernels.wave_replay_q.ops import \
+            wave_replay_q_layer
+        statics = {name: (qgraph.quants[name].pre_shift,
+                          qgraph.quants[name].fan_chunk)
+                   for name in kprogs}
+        in_scale = float(qgraph.scales[INPUT])
+        out_scale = float(qgraph.scales[graph.output])
+
+        def forward_q(x, weights, ops):
+            check_graph_input(graph, x)
+            env = {INPUT: x if x.dtype == torch.int8
+                   else quantize_int8_sym(x, in_scale)}
+            for i, n in enumerate(sched):
+                if n.op == "conv":
+                    _, resv, outv = epi[n.name]
+                    wq, bq, m, s = weights[n.name]
+                    ps, fc = statics[n.name]
+                    env[outv] = wave_replay_q_layer(
+                        kprogs[n.name], env[n.inputs[0]], wq, bq, m, s,
+                        pre_shift=ps, fan_chunk=fc, table=ops[n.name],
+                        residual=env[resv] if resv is not None else None)
+                elif n.name not in fused_adds:
+                    env[n.name] = residual_add_i8(
+                        env[n.inputs[0]], env[n.inputs[1]], n.relu)
+                for v in bplan.frees[i]:        # liveness: drop dead refs
+                    env.pop(v, None)
+            y = env[graph.output]
+            return dequantize_int8(y, out_scale) if dequantize else y
+
+        return forward_q
+
+    from repro_torch.kernels.wave_replay.ops import wave_replay_layer
 
     def forward_mega(x, weights, ops):
         check_graph_input(graph, x)

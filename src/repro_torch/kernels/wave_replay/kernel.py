@@ -17,6 +17,7 @@ version's runs on CPU tensors, which launch nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -65,11 +66,14 @@ def reset_launch_count() -> None:
     launches = plain_calls = 0
 
 
+@functools.lru_cache(maxsize=256)
 def cta_block(kp: KernelProgram) -> "tuple[int, int]":
     """(rows, cols) of the output block one CTA writes (pooled when the
     program fuses its pool): the fewest CTAs per tile whose conv rows,
     ``(rows - 1) * ps + pool`` by ``(cols - 1) * ps + pool``, fit the
-    kernel's ``CTA_PIXELS``; ties go to the smaller conv rectangle."""
+    kernel's ``CTA_PIXELS``; ties go to the smaller conv rectangle.
+    Cached per program: the search costs as much host time as a small
+    layer's kernel, and every launch asks for it."""
     best = None
     for ph in range(1, kp.blk_h + 1):
         ch = (ph - 1) * kp.pool_stride + kp.pool

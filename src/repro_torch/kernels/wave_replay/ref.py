@@ -78,7 +78,7 @@ def pool_max_subsampled(a: torch.Tensor, *, pool: int, stride: int,
     return out
 
 
-def _step_contrib(kp: KernelProgram, x: torch.Tensor,
+def step_contrib(kp: KernelProgram, x: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """One chain step's partial sums over a (bb, ih, iw, c_width) window
     and the step's (K, K, fan_width, out_c_pad) weight slice."""
@@ -156,7 +156,7 @@ def wave_replay_plain(kp: KernelProgram, xp: torch.Tensor, wp: torch.Tensor,
                        r[OP_IX]:r[OP_IX] + kp.iw,
                        r[OP_C0]:r[OP_C0] + kp.c_width]
                 w = wp[:, :, r[OP_WC0]:r[OP_WC0] + kp.fan_width, :]
-                acc = acc + _step_contrib(kp, x, w)
+                acc = acc + step_contrib(kp, x, w)
             # epilogue of the last chain step: bias, residual, ReLU, pool,
             # then the masked write of the tile's output block
             r = tab[kp.n_chain - 1][t]

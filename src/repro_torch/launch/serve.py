@@ -1,13 +1,14 @@
 """Serve single-image CNN requests through a ``StreamingSession``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --network alexnet \
-      --batch 8 --requests 32 [--device cuda|cpu]
+      --batch 8 --requests 32 [--precision fp32|int8] [--device cuda|cpu]
 
 The chosen network's graph (core/model_zoo.py) is planned and lowered
 once; every ``--batch`` submits share one batched forward of one kernel
-launch per conv node. Weights are random, He-normal from ``--seed``.
-Prints the first flush's time, the served rate, ``compiles=``,
-``batched calls=`` and the kernel launches.
+launch per conv node (K1 at fp32, K3 at int8). Weights are random,
+He-normal from ``--seed``. ``--precision int8`` first calibrates the
+graph on two seeded random images. Prints the first flush's time, the
+served rate, ``compiles=``, ``batched calls=`` and the kernel launches.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ import time
 import torch
 
 from repro_torch.core.model_zoo import network_graph
-from repro_torch.kernels.wave_replay.ops import (launch_count, plain_count,
-                                                 reset_launch_count)
+from repro_torch.kernels.wave_replay import kernel as k1
+from repro_torch.kernels.wave_replay_q import kernel as k3
 from repro_torch.launch.session import StreamingSession, resolve_device
 from repro_torch.models.cnn import init_graph_weights
+from repro_torch.quant.calibrate import calibrate_graph
 
 
 def _sync(device: torch.device) -> None:
@@ -33,10 +35,17 @@ def cnn_main(args) -> None:
     graph = network_graph(args.network)
     gen = torch.Generator().manual_seed(args.seed)
     weights = init_graph_weights(graph, gen, device)
+    H, W, C = graph.in_shape
+    qnet = None
+    if args.precision == "int8":
+        calib = torch.randn((2, H, W, C),
+                            generator=torch.Generator().manual_seed(7))
+        qnet = calibrate_graph(graph, weights, calib.to(device))
+    kernel = k3 if args.precision == "int8" else k1
     sess = StreamingSession.for_graph(graph, weights,
                                       sram_budget=args.sram_kb * 1024,
-                                      max_batch=args.batch, device=device)
-    H, W, C = graph.in_shape
+                                      max_batch=args.batch, device=device,
+                                      precision=args.precision, qnet=qnet)
     imgs = torch.randn((args.requests, H, W, C), generator=gen).to(device)
 
     t0 = time.perf_counter()      # one padded flush builds the forward
@@ -44,7 +53,7 @@ def cnn_main(args) -> None:
     _sync(device)
     print(f"compile+first flush: {time.perf_counter() - t0:.3f} s")
 
-    reset_launch_count()
+    kernel.reset_launch_count()
     calls0 = sess.calls
     t0 = time.perf_counter()
     tickets = [sess.submit(imgs[i]) for i in range(args.requests)]
@@ -57,8 +66,8 @@ def cnn_main(args) -> None:
     print(f"served {args.requests} requests in {dt * 1e3:.1f} ms "
           f"({args.requests / dt:.1f} img/s) on {device}, "
           f"compiles={sess.compile_count}, batched calls={calls}, "
-          f"kernel launches={launch_count()} "
-          f"plain-version runs={plain_count()} "
+          f"{args.precision} kernel launches={kernel.launch_count()} "
+          f"plain-version runs={kernel.plain_count()} "
           f"({len(sess.programs)} per call)")
     print(sess.describe())
 
@@ -70,6 +79,7 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--sram-kb", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--precision", choices=("fp32", "int8"), default="fp32")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     cnn_main(ap.parse_args(argv))

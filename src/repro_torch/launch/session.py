@@ -1,12 +1,13 @@
 """Streaming sessions: batched multi-image CNN serving on the card.
 
 The counterpart of ``repro/launch/session.py`` for ``mode="megakernel"``
-at fp32. The session takes a ``NetworkGraph`` (or a plain layer
-sequence, wrapped into its chain graph), plans and lowers every conv
-node once at construction, and serves each request batch with ONE
-wave-replay kernel launch per conv node. Per batch shape it builds the
-forward and uploads the operand tables to the device once
-(``compile_count``), then replays them for every call.
+at fp32 (kernel K1) and int8 (kernel K3). The session takes a
+``NetworkGraph`` (or a plain layer sequence, wrapped into its chain
+graph), plans and lowers every conv node once at construction, and
+serves each request batch with ONE wave-replay kernel launch per conv
+node. Per batch shape it builds the forward and uploads the operand
+tables to the device once (``compile_count``), then replays them for
+every call.
 
   * ``run_batch(x)`` — synchronous batched inference.
   * ``submit(img)`` / ``result(ticket)`` — micro-batching queue: single
@@ -25,12 +26,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.decomposition import ConvLayer, plan_decomposition
-from repro_torch.core.graph import NetworkGraph, chain_graph, conv_keyed
+from repro_torch.core.graph import (INPUT, NetworkGraph, chain_graph,
+                                    conv_keyed)
 from repro_torch.core.schedule import TileProgram
 from repro_torch.core.streaming import (check_mode, compile_graph,
                                         graph_forward_fn, graph_operands,
                                         plan_graph)
-from repro_torch.kernels.wave_replay.ops import launch_count, plain_count
+from repro_torch.core.quantization import quantize_int8_sym
+from repro_torch.kernels.wave_replay import kernel as k1
+from repro_torch.kernels.wave_replay_q import kernel as k3
+from repro_torch.quant.calibrate import quantized_graph_from_network
 from repro_torch.runtime.errors import DeadlineExceeded, Overloaded
 
 # Session options of the reference that this package does not run yet.
@@ -55,19 +60,28 @@ def resolve_device(device=None) -> torch.device:
 class StreamingSession:
     """One (graph, plan-set) serving session, one forward per batch shape.
 
-    ``mode`` must be ``"megakernel"`` and ``precision`` ``"fp32"``; the
-    reference's other modes, ``mode="auto"``, ``precision="int8"``,
-    ``fallback``, ``guard`` and ``tracer`` raise ``NotImplementedError``
-    naming the ROADMAP item that ports them. Kernel programs are lowered
-    at ``max_batch`` as the reference lowers them, so the operand tables
-    are the reference's. ``max_pending`` bounds the queue (``submit``
-    raises ``Overloaded`` when full); ``submit(..., deadline=s)`` drops a
-    request still queued ``s`` seconds later.
+    ``mode`` must be ``"megakernel"``; the reference's other modes,
+    ``mode="auto"``, ``fallback``, ``guard`` and ``tracer`` raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them.
+
+    ``precision="int8"`` serves the fixed-point datapath: pass a
+    calibrated ``qnet``, a ``QuantizedGraph`` (``quant/calibrate.py``) or,
+    for a chain graph, a ``QuantizedNetwork``; ``weights`` may then be
+    ``None``. Float requests are quantized at entry and int8 requests
+    taken as the input's codes; outputs are dequantized at exit unless
+    ``dequantize=False``, which returns the raw int8 codes.
+
+    Kernel programs are lowered at ``max_batch`` as the reference lowers
+    them, so the operand tables are the reference's. ``max_pending``
+    bounds the queue (``submit`` raises ``Overloaded`` when full);
+    ``submit(..., deadline=s)`` drops a request still queued ``s``
+    seconds later.
     """
 
     def __init__(self, graph, plans, weights, max_batch: int = 8,
                  mode: str = "megakernel", precision: str = "fp32",
-                 device=None, max_pending: Optional[int] = None,
+                 device=None, qnet=None, dequantize: bool = True,
+                 max_pending: Optional[int] = None,
                  validate_inputs: bool = True,
                  clock: Callable[[], float] = time.monotonic,
                  fallback=None, guard=None, tracer=None):
@@ -94,12 +108,34 @@ class StreamingSession:
         self.precision = precision
         self._progs = compile_graph(graph, self._plans)
         self.programs: List[TileProgram] = list(self._progs.values())
-        self.weights = {
-            name: (w.to(self.device, torch.float32).contiguous(),
-                   None if b is None
-                   else b.to(self.device, torch.float32).contiguous())
-            for name, (w, b) in conv_keyed(graph, weights,
-                                           "weights").items()}
+        self.dequantize = bool(dequantize)
+        if precision == "int8":
+            if qnet is None:
+                raise ValueError(
+                    "precision='int8' needs a calibrated qnet: run "
+                    "repro_torch.quant.calibrate.calibrate_graph (or "
+                    "calibrate_network for a linear stack) first")
+            if not hasattr(qnet, "scales"):      # QuantizedNetwork
+                if tuple(qnet.layers) != self.layers:
+                    raise ValueError(
+                        "qnet was calibrated for a different layer stack")
+                qnet = quantized_graph_from_network(qnet, graph)
+            if qnet.graph != graph:
+                raise ValueError("qnet was calibrated for a different graph")
+            # (wq, bias_q, m, shift) per node; float weights are not needed
+            self.weights = qnet.device_weights(self.device)
+        else:
+            if weights is None:
+                raise ValueError(
+                    "weights=None is only valid with precision='int8' "
+                    "(where the calibrated qnet supplies them)")
+            self.weights = {
+                name: (w.to(self.device, torch.float32).contiguous(),
+                       None if b is None
+                       else b.to(self.device, torch.float32).contiguous())
+                for name, (w, b) in conv_keyed(graph, weights,
+                                               "weights").items()}
+        self.qnet = qnet
         self.max_pending = max_pending
         self.validate_inputs = bool(validate_inputs)
         self._clock = clock
@@ -143,6 +179,8 @@ class StreamingSession:
         if key not in self._executables:
             fwd = graph_forward_fn(self.graph, self._progs, self.mode,
                                    precision=self.precision,
+                                   qgraph=self.qnet,
+                                   dequantize=self.dequantize,
                                    batch=self.max_batch)
             ops = graph_operands(self.graph, self._progs, self.mode,
                                  precision=self.precision,
@@ -165,11 +203,12 @@ class StreamingSession:
                 f"{self.graph.dtype} input, got shape "
                 f"{tuple(getattr(x, 'shape', ()))}")
         t = torch.as_tensor(x)
-        if not t.dtype.is_floating_point:
+        codes = self._is_codes(t)
+        if not (t.dtype.is_floating_point or codes):
             raise ValueError(
                 f"{self.graph.name}.{what}: expected {spec} "
                 f"{self.graph.dtype} input, got dtype {t.dtype}")
-        if not bool(torch.isfinite(t).all()):
+        if not codes and not bool(torch.isfinite(t).all()):
             raise ValueError(
                 f"{self.graph.name}.{what}: input contains NaN/Inf — "
                 f"refusing to serve (expected finite {spec} "
@@ -179,10 +218,30 @@ class StreamingSession:
         """(B, H, W, C) -> network output on the session's device."""
         if self.validate_inputs:
             self.check_input(x, batched=True)
-        x = torch.as_tensor(x).to(self.device, torch.float32)
+        x = torch.as_tensor(x).to(self.device)
+        if not self._is_codes(x):
+            x = x.to(torch.float32)
         fwd, ops = self._executable(self._exec_key(x.shape, x.dtype))
         self.calls += 1
         return fwd(x, self.weights, ops)
+
+    def _is_codes(self, x: torch.Tensor) -> bool:
+        return self.precision == "int8" and x.dtype == torch.int8
+
+    def _stack(self, images: List[torch.Tensor]) -> torch.Tensor:
+        """Queued images as one batch: fp32, or int8 codes on an int8
+        session. Float images are quantized at entry, elementwise as the
+        forward would: once for the batch, or one by one when the batch
+        mixes them with int8 codes."""
+        imgs = [im.to(self.device) for im in images]
+        if self.precision != "int8":
+            return torch.stack([im.to(torch.float32) for im in imgs])
+        scale = self.qnet.scales[INPUT]
+        if not any(self._is_codes(im) for im in imgs):
+            return quantize_int8_sym(torch.stack(imgs), scale)
+        return torch.stack([im if self._is_codes(im)
+                            else quantize_int8_sym(im, scale)
+                            for im in imgs])
 
     # ------------------------------------------------------------------
     # micro-batching queue: single-image requests share one batched call
@@ -230,8 +289,7 @@ class StreamingSession:
         self._pending.clear()
         if not live:
             return
-        imgs = torch.stack([im.to(self.device, torch.float32)
-                            for _, im in live])
+        imgs = self._stack([im for _, im in live])
         n = imgs.shape[0]
         if n < self.max_batch:
             # zero rows keep the session's batch shape; discarded below
@@ -281,8 +339,10 @@ class StreamingSession:
                 "deadline_expired": self.deadline_expired,
                 "compiles": self.compile_count,
                 "calls": self.calls,
-                "kernel_launches": launch_count(),
-                "plain_calls": plain_count(),
+                "kernel_launches": k1.launch_count(),
+                "plain_calls": k1.plain_count(),
+                "kernel_launches_q": k3.launch_count(),
+                "plain_calls_q": k3.plain_count(),
             },
             "pending": len(self._pending),
             "executables": len(self._executables),

@@ -148,7 +148,8 @@ def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(mode="wave"), dict(mode="graphkernel"),
-                                dict(mode="auto"), dict(precision="int8"),
+                                dict(mode="auto"),
+                                dict(precision="int8", mode="graphkernel"),
                                 dict(fallback=True), dict(guard=True)])
 def test_unported_options_name_their_roadmap_item(kw):
     tg, tw = tiny()
