@@ -21,25 +21,46 @@ Phases, each printing one JSON line:
    (``torch.equal``) against its plain version on the same five cases,
    over random int8 operands and requantize vectors from
    ``requant_params``; report the shares of outputs at 0 and at +-127.
-5. ``quant``: entry quantization on the card equals it on the CPU at
+5. ``kernel_g``: hold the fused-chain kernel (K2) against its plain
+   version on the same CUDA tensors (to ``FP32_TOL``) and against K1
+   walked node by node (``torch.equal``: K2 runs K1's bodies with K1's
+   CTA split), per chain: AlexNet's two chains at the default budget
+   and batch 8, the whole network as one chain at 16 MB, the 281-step
+   chain of the 64 KB plans replayed 1:1 at batch 2, an identity block
+   whose residual is read from an arena slot, a block whose input is
+   staged into the arena, and MobileNet-v1's 27-node depthwise chain.
+6. ``kernel_gq``: hold the int8 fused-chain kernel (K4) bit for bit
+   against its plain version and against K3 walked node by node, on the
+   same chains.
+7. ``quant``: entry quantization on the card equals it on the CPU at
    exact halves of the scale.
-6. ``serve``: serve 32 AlexNet requests at batch 8 through the port's
+8. ``serve``: serve 32 AlexNet requests at batch 8 through the port's
    fp32 ``StreamingSession`` on the card, with the launch counts set to 0
    just before and read just after; the outputs are held against the
    port's direct reference on the card (TF32 off for matmul and cuDNN).
-7. ``serve_q``: calibrate AlexNet on the card, serve the same 32 requests
+9. ``serve_q``: calibrate AlexNet on the card, serve the same 32 requests
    through the int8 session (K3 five times per batched call, K1 never),
    hold its raw int8 output bit for bit against the port's int32
    reference walk on the card, and report the SNR of the dequantized
    output against the fp32 reference.
-8. ``timing``: per AlexNet layer at batch 8, each kernel's median time,
-   its plain version's, a library yardstick the port never calls
-   (``library_ms``: cuDNN's ``conv2d + bias + ReLU + max_pool2d`` for K1,
-   ``torch._int_mm`` on the layer's im2col, per group, gemm only, for K3)
-   and the bound; for each precision the served images per second over
-   windows of at least a second and, from ``torch.profiler`` over served
-   runs, the device time by kernel, the device's idle share and the host
-   time by operation.
+10. ``serve_g``: the same 32 requests through the fp32 session in
+    whole-graph mode (``mode="graphkernel"``): K2 twice per batched call
+    (conv1+conv2, conv3-conv5), K1 never; the output equals the
+    megakernel session's (``torch.equal``) and is held against the
+    direct reference.
+11. ``serve_gq``: the int8 twin: K4 twice per call, K3 never; the raw
+    output equals the int32 reference walk and the megakernel session's
+    raw output; the SNR is reported.
+12. ``timing``: per AlexNet layer at batch 8, each per-layer kernel's
+    median time, its plain version's, a library yardstick the port never
+    calls (``library_ms``: cuDNN's ``conv2d + bias + ReLU + max_pool2d``
+    for K1, ``torch._int_mm`` on the layer's im2col, per group, gemm
+    only, for K3) and the bound; per AlexNet chain the same for K2 and
+    K4 (bound and ``library_ms`` summed over the chain's layers); for
+    each precision and mode the served images per second over windows of
+    at least a second and, from ``torch.profiler`` over served runs, the
+    device time by kernel, the device's idle share and the host time by
+    operation.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits nonzero before the
@@ -171,6 +192,232 @@ def median_ms(fn, groups: int = 7, per_group: int = 10,
     return statistics.median(times)
 
 
+def chain_graphs():
+    """Two small graphs for the fused-chain cases: an identity block whose
+    residual add reads the stem's output from its arena slot, and a block
+    whose shortcut reads the chain input, so the input is staged into the
+    arena (``input_in_arena``)."""
+    from repro_torch.core.decomposition import ConvLayer
+    from repro_torch.core.graph import INPUT, GraphNode, NetworkGraph
+
+    def conv(name, ci, co, inputs, relu=True):
+        return GraphNode(name, "conv", inputs,
+                         layer=ConvLayer(name, 8, 8, ci, co, 3, pad=1),
+                         relu=relu)
+
+    ident = NetworkGraph("identity_block", (8, 8, 3), (
+        conv("stem", 3, 8, (INPUT,)), conv("c1", 8, 8, ("stem",)),
+        conv("c2", 8, 8, ("c1",), relu=False),
+        GraphNode("add", "add", ("c2", "stem"), relu=True)), "add")
+    staged = NetworkGraph("input_in_arena", (8, 8, 8), (
+        conv("c1", 8, 8, (INPUT,)), conv("c2", 8, 8, ("c1",), relu=False),
+        GraphNode("add", "add", ("c2", INPUT), relu=True)), "add")
+    return ident, staged
+
+
+def chain_cases(batch: int, quantized: bool):
+    """``(name, GraphKernelProgram, batch)`` per fused-chain case: AlexNet's
+    two chains at the default budget, the whole network as one chain at
+    16 MB, the 281-step chain of the 64 KB plans replayed 1:1
+    (``vmem_budget=None``, batch 2), the two small blocks and MobileNet-v1's
+    27-node depthwise chain (32x32, width 8)."""
+    from repro_torch.core.model_zoo import network_graph
+    from repro_torch.core.streaming import (compile_graph,
+                                            graph_chain_programs, plan_graph)
+    alex = network_graph("alexnet")
+    ident, staged = chain_graphs()
+    specs = [
+        ("alexnet", alex, 128 * 1024, 8 * 2 ** 20, batch),
+        ("alexnet 16 MB", alex, 128 * 1024, 16 * 2 ** 20, batch),
+        ("alexnet 64 KB plans, vmem_budget=None", alex, 64 * 1024, None, 2),
+        ("identity block (residual slot)", ident, 64 * 1024, 8 * 2 ** 20,
+         batch),
+        ("input in arena", staged, 64 * 1024, 8 * 2 ** 20, batch),
+        ("mobilenet_v1 32x32 w8 (depthwise)",
+         network_graph("mobilenet_v1", in_hw=32, width=8), 128 * 1024,
+         8 * 2 ** 20, batch)]
+    cases = []
+    for name, g, sram, budget, b in specs:
+        progs = compile_graph(g, plan_graph(g, sram))
+        _, _, gkps = graph_chain_programs(g, progs, budget,
+                                          quantized=quantized, batch=b)
+        for head, gkp in gkps.items():
+            cases.append((f"{name}: {'+'.join(s.name for s in gkp.nodes)}"
+                          if len(gkp.nodes) <= 5
+                          else f"{name}: {len(gkp.nodes)} nodes", gkp, b))
+    return cases
+
+
+def chain_weights(gkp, gen, dev):
+    """Random He-normal weights and small biases per chain node."""
+    import torch
+    out = []
+    for spec in gkp.nodes:
+        l = spec.kp.wave.program.layer
+        fan = l.kernel ** 2 * (l.in_c // l.groups)
+        w = torch.randn((l.kernel, l.kernel, l.in_c // l.groups, l.out_c),
+                        generator=gen) * (2.0 / fan) ** 0.5
+        out.append((w.to(dev), (torch.randn((l.out_c,), generator=gen)
+                                * 0.1).to(dev)))
+    return out
+
+
+def chain_quant(gkp, gen, dev):
+    """Random int8 weights and int32 bias/requantize vectors per chain
+    node, scaled so that int8 outputs spread (as for K3's cases), and
+    each node's pre_shift."""
+    import torch
+
+    from repro_torch.core.quantization import requant_params
+    qops, pres = [], []
+    for spec in gkp.nodes:
+        l = spec.kp.wave.program.layer
+        fan = l.kernel ** 2 * (l.in_c // l.groups)
+        wq = torch.randint(-127, 128, (l.kernel, l.kernel,
+                                       l.in_c // l.groups, l.out_c),
+                           generator=gen, dtype=torch.int8)
+        bq = torch.randint(-3000, 3000, (l.out_c,), generator=gen,
+                           dtype=torch.int32)
+        ratio = (torch.rand((l.out_c,), generator=gen, dtype=torch.float64)
+                 * 1.5 + 0.5) * 60 / (fan ** 0.5 * 5376)
+        m, shift, pre = requant_params(ratio.numpy(),
+                                       fan * 127 * 127 + 3000)
+        qops.append((wq.to(dev), bq.to(dev), torch.as_tensor(m, device=dev),
+                     torch.as_tensor(shift, device=dev)))
+        pres.append(pre)
+    return qops, pres
+
+
+def per_layer_walk(gkp, x, params, launch):
+    """The chain run node by node through the per-layer kernel:
+    ``launch(kp, x_natural, params_i, residual_natural)`` returns a node's
+    padded output; returns the last node's padded output."""
+    env = {gkp.input_value: x}
+    for i, spec in enumerate(gkp.nodes):
+        kp = spec.kp
+        l = kp.wave.program.layer
+        res = env[spec.residual_value] if spec.residual_value else None
+        y = launch(kp, env[spec.in_value], params[i], res)
+        if i == len(gkp.nodes) - 1:
+            return y
+        env[spec.out_value] = y[:, :kp.out_h, :kp.out_w, :l.out_c]
+
+
+
+def kernel_g(dev, gen, batch: int) -> "tuple[float, dict]":
+    """K2 against its plain version on the same CUDA tensors (to
+    ``FP32_TOL``) and against K1 walked node by node (``torch.equal``:
+    the same bodies, split and reduction order), per chain case. Returns
+    the largest error against the plain version and AlexNet's two chains'
+    operands for the timing phase."""
+    import torch
+
+    from repro_torch.kernels.wave_replay import ops
+    from repro_torch.kernels.wave_replay.graph import (
+        pack_graph_weights, wave_replay_graph_plain, wave_replay_graph_raw)
+    from repro_torch.kernels.wave_replay.kernel import wave_replay_raw
+    from repro_torch.kernels.wave_replay.ref import fp32_error
+
+    def k1(kp, x, wb, res):
+        xp, wp, bias = ops.pad_operands(kp, x, *wb)
+        table = torch.as_tensor(kp.operand_table(), device=dev)
+        rp = ops.pad_residual(kp, res) if res is not None else None
+        return wave_replay_raw(kp, xp, wp, bias, table, residual=rp)
+
+    max_err, alex = 0.0, {}
+    for name, gkp, b in chain_cases(batch, quantized=False):
+        l0 = gkp.nodes[0].kp.wave.program.layer
+        x = torch.randn((b, l0.in_h, l0.in_w, l0.in_c), generator=gen).to(dev)
+        weights = chain_weights(gkp, gen, dev)
+        xp = ops.pad_input(gkp.nodes[0].kp, x)
+        wf, bf = pack_graph_weights(gkp, weights)
+        table = torch.as_tensor(gkp.operand_table(), device=dev)
+        got = wave_replay_graph_raw(gkp, xp, wf, bf, table)
+        torch.cuda.synchronize()
+        want = wave_replay_graph_plain(gkp, xp, wf, bf, table)
+        by_k1 = per_layer_walk(gkp, x, weights, k1)
+        torch.cuda.synchronize()
+        err, tol = fp32_error(got, want)
+        finite = bool(torch.isfinite(got).all())
+        equal = bool(torch.equal(got, by_k1))
+        emit("kernel_g", case=name, batch=b, nodes=len(gkp.nodes),
+             total_steps=gkp.total_steps,
+             input_in_arena=gkp.input_in_arena,
+             arena_slots=len(gkp.arena.slot_shapes), shape=list(got.shape),
+             max_abs_err=err, tol=tol, max_abs_out=float(want.abs().max()),
+             finite=finite, equal_to_k1_node_by_node=equal)
+        check(finite and err <= tol,
+              f"{name}: K2 disagrees with its plain version (err {err} > "
+              f"tol {tol}) or is not finite")
+        check(equal, f"{name}: K2 differs from K1 run node by node")
+        max_err = max(max_err, err)
+        if name.startswith("alexnet:"):
+            alex[gkp.nodes[0].name] = (gkp, (xp, wf, bf, table))
+    return max_err, alex
+
+
+def kernel_gq(dev, gen, batch: int) -> dict:
+    """K4 bit for bit (``torch.equal``) against its plain version and
+    against K3 walked node by node, per chain case. Returns AlexNet's two
+    chains' operands for the timing phase."""
+    import torch
+
+    from repro_torch.kernels.wave_replay.ops import pad_input
+    from repro_torch.kernels.wave_replay_q import ops as ops_q
+    from repro_torch.kernels.wave_replay_q.graph import (
+        pack_graph_operands_q, wave_replay_graph_q_plain,
+        wave_replay_graph_q_raw)
+    from repro_torch.kernels.wave_replay_q.kernel import wave_replay_q_raw
+
+    alex = {}
+    for name, gkp, b in chain_cases(batch, quantized=True):
+        l0 = gkp.nodes[0].kp.wave.program.layer
+        xq = torch.randint(-127, 128, (b, l0.in_h, l0.in_w, l0.in_c),
+                           generator=gen, dtype=torch.int8).to(dev)
+        qops, pres = chain_quant(gkp, gen, dev)
+        fcs = [None] * len(qops)
+
+        def k3(kp, x, q_pre, res):
+            args = ops_q.pad_operands_q(kp, x, *q_pre[0])
+            table = torch.as_tensor(kp.operand_table(), device=dev)
+            rp = ops_q.pad_residual_q(kp, res) if res is not None else None
+            return wave_replay_q_raw(kp, *args, table, pre_shift=q_pre[1],
+                                     residual=rp)
+
+        xp = pad_input(gkp.nodes[0].kp, xq)
+        flat = pack_graph_operands_q(gkp, qops)
+        table = torch.as_tensor(gkp.operand_table(), device=dev)
+        got = wave_replay_graph_q_raw(gkp, xp, *flat, table,
+                                      pre_shifts=pres, fan_chunks=fcs)
+        torch.cuda.synchronize()
+        want = wave_replay_graph_q_plain(gkp, xp, *flat, table,
+                                         pre_shifts=pres)
+        by_k3 = per_layer_walk(gkp, xq, list(zip(qops, pres)), k3)
+        torch.cuda.synchronize()
+        kl = gkp.out_kp
+        valid = want[:, :kl.out_h, :kl.out_w, :gkp.out_layer.out_c].float()
+        zero = float((valid == 0).float().mean())
+        sat = float((valid.abs() == 127).float().mean())
+        equal = bool(torch.equal(got, want))
+        equal_k3 = bool(torch.equal(got, by_k3))
+        emit("kernel_gq", case=name, batch=b, nodes=len(gkp.nodes),
+             total_steps=gkp.total_steps, pre_shifts=pres,
+             shape=list(got.shape), equal=equal,
+             max_abs_diff=int((got.int() - want.int()).abs().max()),
+             equal_to_k3_node_by_node=equal_k3, share_zero=zero,
+             share_saturated=sat)
+        check(got.dtype == torch.int8 and equal,
+              f"{name}: K4 differs from its plain version")
+        check(equal_k3, f"{name}: K4 differs from K3 run node by node")
+        check(zero < 1.0 and sat < 1.0,
+              f"{name}: outputs all zero or all saturated, the case tests "
+              f"nothing")
+        if name.startswith("alexnet:"):
+            alex[gkp.nodes[0].name] = (gkp, (xp,) + flat + (table,), pres)
+    return alex
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -195,12 +442,18 @@ def main() -> int:
                                             graph_kernel_programs,
                                             plan_graph, run_graph_reference)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.wave_replay import graph as k2
     from repro_torch.kernels.wave_replay import ops
+    from repro_torch.kernels.wave_replay.graph import (
+        wave_replay_graph_plain, wave_replay_graph_raw)
     from repro_torch.kernels.wave_replay.kernel import (launch_geometry,
                                                         wave_replay_raw)
     from repro_torch.kernels.wave_replay.ref import (fp32_error,
                                                      wave_replay_plain)
+    from repro_torch.kernels.wave_replay_q import graph as k4
     from repro_torch.kernels.wave_replay_q import ops as ops_q
+    from repro_torch.kernels.wave_replay_q.graph import (
+        wave_replay_graph_q_plain, wave_replay_graph_q_raw)
     from repro_torch.kernels.wave_replay_q.kernel import wave_replay_q_raw
     from repro_torch.kernels.wave_replay_q.ref import wave_replay_q_plain
     from repro_torch.launch.session import StreamingSession
@@ -225,7 +478,8 @@ def main() -> int:
          int8_peak_ops=INT8_PEAK_OPS, mem_bytes_per_s=bw_peak)
 
     # 2. build: one nvcc per source, all started together
-    stems = ("wave_replay", "wave_replay_q")
+    stems = ("wave_replay", "wave_replay_q", "wave_replay_graph",
+             "wave_replay_graph_q")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         reports = dict(zip(stems, pool.map(_build.build, stems)))
@@ -361,7 +615,12 @@ def main() -> int:
         if is_alex_layer(name):
             layer_ops_q[name.split(".")[1]] = (kp, natural, args, pre)
 
-    # 5. entry quantization: the card rounds as the CPU does at ties
+    # 5-6. the fused-chain kernels against their plain versions and
+    # against the per-layer kernels walked node by node
+    err_g, chain_ops = kernel_g(dev, gen, BATCH)
+    chain_ops_q = kernel_gq(dev, gen, BATCH)
+
+    # 7. entry quantization: the card rounds as the CPU does at ties
     scale = 0.0371
     k = torch.arange(-140, 140, dtype=torch.float32).repeat(3572)
     ties = (k + 0.5) * torch.tensor(scale, dtype=torch.float32)
@@ -375,7 +634,7 @@ def main() -> int:
     check(torch.equal(on_card, on_cpu),
           "entry quantization on the card differs from the CPU's")
 
-    # 6. the fp32 main path: serve AlexNet requests through the session
+    # 8. the fp32 main path: serve AlexNet requests through the session
     weights = init_graph_weights(alex, torch.Generator().manual_seed(1),
                                  dev)
     sess = StreamingSession.for_graph(alex, weights, max_batch=BATCH,
@@ -394,23 +653,27 @@ def main() -> int:
             return outs
         return serve
 
+    counted = {"K1": ops, "K3": ops_q, "K2": k2, "K4": k4}
+
     def drive(s):
-        """One 32-request run with both kernels' counts set to 0 just
-        before and read just after."""
-        ops.reset_launch_count()
-        ops_q.reset_launch_count()
+        """One 32-request run with every kernel's count set to 0 just
+        before and read just after: (outputs, seconds, batched calls,
+        K1, K3 launches, all four counts)."""
+        for k in counted.values():
+            k.reset_launch_count()
         calls0 = s.calls
         t0 = time.perf_counter()
         outs = serving(s)()
+        n = {name: k.launch_count() for name, k in counted.items()}
         return (outs, time.perf_counter() - t0, s.calls - calls0,
-                ops.launch_count(), ops_q.launch_count())
+                n["K1"], n["K3"], n)
 
-    outs, first_s, calls, launches, stray_q = drive(sess)
+    outs, first_s, calls, launches, stray_q, n = drive(sess)
     check(calls == REQUESTS // BATCH, f"{calls} batched calls")
-    check(launches == 5 * calls and stray_q == 0,
-          f"{launches} K1 and {stray_q} K3 launches for {calls} fp32 "
-          f"AlexNet calls")
-    y = torch.stack(outs)
+    check(launches == 5 * calls and stray_q == 0
+          and n["K2"] == n["K4"] == 0,
+          f"{n} launches for {calls} fp32 AlexNet calls")
+    y_mega = y = torch.stack(outs)
     ref = torch.cat([run_graph_reference(alex, weights,
                                          imgs[i:i + BATCH])[alex.output]
                      for i in range(0, REQUESTS, BATCH)])
@@ -424,7 +687,7 @@ def main() -> int:
          seconds=first_s, max_abs_err=err, tol=tol,
          max_abs_out=float(ref.abs().max()))
 
-    # 7. the int8 main path: calibrate on the card, serve the same requests
+    # 9. the int8 main path: calibrate on the card, serve the same requests
     t0 = time.perf_counter()
     calib = torch.randn((2,) + alex.in_shape,
                         generator=torch.Generator().manual_seed(7)).to(dev)
@@ -435,11 +698,11 @@ def main() -> int:
                                         qnet=qg)
     sess_q.result(sess_q.submit(imgs[0]))
     torch.cuda.synchronize()
-    outs, first_q_s, calls_q, stray, launches_q = drive(sess_q)
+    outs, first_q_s, calls_q, stray, launches_q, n = drive(sess_q)
     check(calls_q == REQUESTS // BATCH, f"{calls_q} batched int8 calls")
-    check(launches_q == 5 * calls_q and stray == 0,
-          f"{launches_q} K3 and {stray} K1 launches for {calls_q} int8 "
-          f"AlexNet calls")
+    check(launches_q == 5 * calls_q and stray == 0
+          and n["K2"] == n["K4"] == 0,
+          f"{n} launches for {calls_q} int8 AlexNet calls")
     yq = torch.stack(outs)
     raw_sess = StreamingSession.for_graph(alex, None, max_batch=BATCH,
                                           device=dev, precision="int8",
@@ -465,7 +728,62 @@ def main() -> int:
          snr_db_vs_fp32=snr, snr_floor_of_the_reference_tests=20.0,
          pre_shift={n: q.pre_shift for n, q in qg.quants.items()})
 
-    # 8. timing, per AlexNet layer at batch 8, and the served rates
+    # 10. the fp32 whole-graph path: the same requests, one K2 launch per
+    # fused chain
+    sess_g = StreamingSession.for_graph(alex, weights, max_batch=BATCH,
+                                        device=dev, mode="graphkernel")
+    sess_g.result(sess_g.submit(imgs[0]))
+    torch.cuda.synchronize()
+    chains_g = sess_g.health()["launches_per_forward"]
+    outs, first_g_s, calls_g, stray_g, stray_gq, n_g = drive(sess_g)
+    check(calls_g == REQUESTS // BATCH, f"{calls_g} batched calls")
+    check(chains_g == 2 and n_g["K2"] == chains_g * calls_g
+          and n_g["K1"] == n_g["K3"] == n_g["K4"] == 0,
+          f"{n_g} launches for {calls_g} fp32 graphkernel AlexNet calls")
+    y_g = torch.stack(outs)
+    err_sg, tol = fp32_error(y_g, ref)
+    check(torch.equal(y_g, y_mega),
+          "graphkernel output differs from the megakernel session's")
+    check(err_sg <= tol, f"graphkernel output off the reference: "
+          f"{err_sg} > {tol}")
+    emit("serve_g", requests=REQUESTS, batch=BATCH, batched_calls=calls_g,
+         k2_launches=n_g["K2"], k1_launches=n_g["K1"],
+         launches_per_forward=chains_g, compiles=sess_g.compile_count,
+         seconds=first_g_s, equal_to_megakernel=True, max_abs_err=err_sg,
+         tol=tol, chains=sess_g.describe().splitlines()[1:])
+
+    # 11. the int8 whole-graph path: one K4 launch per fused chain
+    sess_gq = StreamingSession.for_graph(alex, None, max_batch=BATCH,
+                                         device=dev, mode="graphkernel",
+                                         precision="int8", qnet=qg)
+    sess_gq.result(sess_gq.submit(imgs[0]))
+    torch.cuda.synchronize()
+    outs, first_gq_s, calls_gq, _, _, n_gq = drive(sess_gq)
+    check(calls_gq == REQUESTS // BATCH, f"{calls_gq} batched int8 calls")
+    check(n_gq["K4"] == 2 * calls_gq
+          and n_gq["K1"] == n_gq["K2"] == n_gq["K3"] == 0,
+          f"{n_gq} launches for {calls_gq} int8 graphkernel AlexNet calls")
+    yq_g = torch.stack(outs)
+    raw_g_sess = StreamingSession.for_graph(
+        alex, None, max_batch=BATCH, device=dev, mode="graphkernel",
+        precision="int8", qnet=qg, dequantize=False)
+    raw_g = torch.cat([raw_g_sess.run_batch(imgs[i:i + BATCH])
+                       for i in range(0, REQUESTS, BATCH)])
+    torch.cuda.synchronize()
+    check(raw_g.dtype == torch.int8 and torch.equal(raw_g, want_q),
+          "graphkernel raw int8 output differs from the int32 reference "
+          "walk")
+    check(torch.equal(raw_g, raw) and torch.equal(yq_g, yq),
+          "graphkernel int8 output differs from the megakernel session's")
+    emit("serve_gq", requests=REQUESTS, batch=BATCH, batched_calls=calls_gq,
+         k4_launches=n_gq["K4"], k3_launches=n_gq["K3"],
+         launches_per_forward=sess_gq.health()["launches_per_forward"],
+         compiles=sess_gq.compile_count, seconds=first_gq_s,
+         raw_equal_to_int32_reference=True, equal_to_megakernel=True,
+         snr_db_vs_fp32=snr_db(ref, yq_g))
+
+    # 12. timing, per AlexNet layer and chain at batch 8, and the served
+    # rates
     rows = []
     for name, (kp, (x, w, b), (xp, wp, bias, table, rp)) in \
             layer_ops.items():
@@ -535,9 +853,63 @@ def main() -> int:
                            achieved_tops=int_ops / ms / 1e9,
                            launches_per_forward=1))
         emit("timing", **rows_q[-1], nvidia_smi=smi)
+    def coop_grid(gkp, stem, suffix):
+        """The cooperative grid of a chain's launch: CTAs co-resident on
+        the card, and the most any node's phase can use."""
+        fit = k2.co_resident_ctas(_build.library(stem),
+                                  f"{stem}_{suffix}_occupancy", dev)
+        need = k2.launch_plan(gkp, BATCH, lambda *a: []).max_ctas
+        return dict(grid_ctas=min(fit, need), co_resident_ctas=fit,
+                    largest_phase_ctas=need)
+
+    by_layer = {r["layer"]: r for r in rows}
+    rows_g = []
+    for head, (gkp, args) in chain_ops.items():
+        ms = median_ms(lambda: wave_replay_graph_raw(gkp, *args))
+        plain_ms = median_ms(lambda: wave_replay_graph_plain(gkp, *args),
+                             groups=5, per_group=2, warm=1)
+        layer_rows = [by_layer[sp.name] for sp in gkp.nodes]
+        total = {k: sum(r[k] for r in layer_rows)
+                 for k in ("bound_ms", "ops_ms", "bytes_ms", "library_ms",
+                           "gflop", "ms")}
+        rows_g.append(dict(
+            kernel="K2", chain="+".join(sp.name for sp in gkp.nodes),
+            ms=ms, plain_ms=plain_ms, library_ms=total["library_ms"],
+            bound_ms=total["bound_ms"],
+            bound_by="operations" if total["ops_ms"] >= total["bytes_ms"]
+            else "bytes", ops_ms=total["ops_ms"], bytes_ms=total["bytes_ms"],
+            k1_ms_summed=total["ms"], gflop=total["gflop"],
+            achieved_tflops=total["gflop"] / ms, launches_per_forward=1,
+            **coop_grid(gkp, "wave_replay_graph", "f32")))
+        emit("timing", **rows_g[-1], nvidia_smi=smi)
+    by_layer_q = {r["layer"]: r for r in rows_q}
+    rows_gq = []
+    for head, (gkp, args, pres) in chain_ops_q.items():
+        fcs = [None] * len(pres)
+        ms = median_ms(lambda: wave_replay_graph_q_raw(
+            gkp, *args, pre_shifts=pres, fan_chunks=fcs))
+        plain_ms = median_ms(lambda: wave_replay_graph_q_plain(
+            gkp, *args, pre_shifts=pres), groups=5, per_group=2, warm=1)
+        layer_rows = [by_layer_q[sp.name] for sp in gkp.nodes]
+        total = {k: sum(r[k] for r in layer_rows)
+                 for k in ("bound_ms", "ops_ms", "bytes_ms", "library_ms",
+                           "gop", "ms")}
+        rows_gq.append(dict(
+            kernel="K4", chain="+".join(sp.name for sp in gkp.nodes),
+            ms=ms, plain_ms=plain_ms, library_ms=total["library_ms"],
+            bound_ms=total["bound_ms"],
+            bound_by="operations" if total["ops_ms"] >= total["bytes_ms"]
+            else "bytes", ops_ms=total["ops_ms"], bytes_ms=total["bytes_ms"],
+            k3_ms_summed=total["ms"], gop=total["gop"],
+            achieved_tops=total["gop"] / ms, launches_per_forward=1,
+            **coop_grid(gkp, "wave_replay_graph_q", "i8")))
+        emit("timing", **rows_gq[-1], nvidia_smi=smi)
     profiled_runs = 4
-    for precision, s in (("fp32", sess), ("int8", sess_q)):
-        emit("timing", precision=precision,
+    for precision, mode, s in (("fp32", "megakernel", sess),
+                               ("int8", "megakernel", sess_q),
+                               ("fp32", "graphkernel", sess_g),
+                               ("int8", "graphkernel", sess_gq)):
+        emit("timing", precision=precision, mode=mode,
              **served_rate(serving(s), REQUESTS), batch=BATCH,
              requests_per_run=REQUESTS,
              profiled_requests=profiled_runs * REQUESTS,
@@ -564,7 +936,16 @@ def main() -> int:
         # every K3 comparison above is torch.equal: no difference passes
         entry("wave_replay_q_i8", "src/repro_torch/csrc/wave_replay_q.cu",
               "src/repro/kernels/wave_replay_q/kernel.py:82", launches_q,
-              0, rows_q)]}))
+              0, rows_q),
+        entry("wave_replay_graph_f32",
+              "src/repro_torch/csrc/wave_replay_graph.cu",
+              "src/repro/kernels/wave_replay/graph.py:157", n_g["K2"],
+              max(err_g, err_sg), rows_g),
+        # every K4 comparison above is torch.equal
+        entry("wave_replay_graph_q_i8",
+              "src/repro_torch/csrc/wave_replay_graph_q.cu",
+              "src/repro/kernels/wave_replay_q/graph.py:180", n_gq["K4"],
+              0, rows_gq)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

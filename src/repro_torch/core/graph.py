@@ -465,6 +465,125 @@ def check_graph_input(graph: NetworkGraph, x) -> None:
             f"address the wrong pixels")
 
 
+# ---------------------------------------------------------------------------
+# Fusible-chain analysis: which consecutive conv nodes can
+# share ONE persistent kernel launch under the VMEM budget
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FusedChain:
+    """A maximal run of conv nodes executed as one graph kernel.
+
+    ``convs`` are conv node names in schedule order; ``input_value`` is
+    the only activation the launch reads from HBM and ``output_value``
+    the only one it writes back (a fused residual add's name when the
+    final conv carries one). Single-node chains fall back to the
+    ordinary per-layer megakernel launch.
+    """
+    convs: Tuple[str, ...]
+    input_value: str
+    output_value: str
+
+
+def fusible_chains(graph: NetworkGraph, kprogs,
+                   *, vmem_budget: Optional[int] = None,
+                   quantized: bool = False,
+                   only: Optional[frozenset] = None,
+                   batch_block: int = 1) -> Tuple[FusedChain, ...]:
+    """Greedily partition the conv schedule into fusible chains.
+
+    A chain grows over consecutive conv nodes (fused residual adds ride
+    their conv) while three conditions hold:
+
+    * **wiring** — the next conv's input, and its fused residual if
+      any, are values the chain already holds (its input or an earlier
+      node's output); a conv whose residual comes from outside runs as
+      a single-node chain (the per-layer launch DMAs the residual);
+    * **liveness** — at every cut, each internal value's consumers
+      (per ``value_consumers`` — the same last-use relation
+      ``plan_buffers`` frees on) all sit inside the chain, so nothing
+      the arena holds is ever needed in HBM; the greedy walk backtracks
+      to the longest prefix with that property before emitting;
+    * **budget** — ``chain_vmem_bytes`` of the grown chain (activation
+      arena + shared accumulator + per-step windows) stays under
+      ``vmem_budget`` (default ``DEFAULT_VMEM_BUDGET``).
+
+    ``kprogs`` maps conv node name -> its per-layer KernelProgram (the
+    exact programs the chain will replay). Returns chains covering
+    every conv node exactly once, in schedule order.
+
+    ``only`` (the reference's fallback runtime) restricts fusion to a
+    subset of conv nodes: nodes outside it are emitted as
+    single-node chains, break every run they sit in, and need no entry
+    in ``kprogs`` (a degraded node may have none — its per-layer
+    lowering is what failed).
+
+    ``batch_block`` sizes the budget check for chains meant to process
+    that many images per grid step — arena slots and the
+    accumulator scale per-image, weights are batch-shared. The default
+    (1) keeps chain membership batch-invariant: callers that batch a
+    per-image-fused chain clamp its kernel's block instead
+    (``streaming._chain_batch_block``).
+    """
+    from repro_torch.core.schedule import (DEFAULT_VMEM_BUDGET,
+                                           ChainNodeSpec, chain_vmem_bytes)
+    budget = DEFAULT_VMEM_BUDGET if vmem_budget is None else vmem_budget
+    if only is None:
+        kprogs = conv_keyed(graph, kprogs, "kernel programs")
+    fusion = residual_fusion(graph)
+    conv_res = fusion.conv_residual()
+    add_of = fusion.add_of_conv()
+    cons = value_consumers(graph)
+
+    specs = [ChainNodeSpec(name=n.name, kp=kprogs.get(n.name),
+                           in_value=n.inputs[0],
+                           out_value=add_of.get(n.name, n.name),
+                           residual_value=conv_res.get(n.name))
+             for n in graph.conv_nodes()]
+
+    def cut_ok(prefix) -> bool:
+        covered = {s.name for s in prefix}
+        covered |= {add_of[s.name] for s in prefix if s.name in add_of}
+        return all(set(cons[s.out_value]) <= covered
+                   for s in prefix[:-1])
+
+    chains: List[FusedChain] = []
+    i = 0
+    while i < len(specs):
+        head = specs[i]
+        cur = [head]
+        values = {head.in_value, head.out_value}
+        external_res = (head.residual_value is not None
+                        and head.residual_value != head.in_value)
+        if only is not None and head.name not in only:
+            external_res = True         # excluded node: singleton chain
+        j = i + 1
+        while j < len(specs) and not external_res:
+            s = specs[j]
+            if only is not None and s.name not in only:
+                break
+            if s.in_value not in values:
+                break
+            if s.residual_value is not None \
+                    and s.residual_value not in values:
+                break
+            if chain_vmem_bytes(cur + [s], quantized,
+                                batch_block=batch_block) > budget:
+                break
+            cur.append(s)
+            values.add(s.out_value)
+            j += 1
+        m = len(cur)
+        while m > 1 and not cut_ok(cur[:m]):
+            m -= 1
+        chains.append(FusedChain(
+            convs=tuple(s.name for s in cur[:m]),
+            input_value=head.in_value,
+            output_value=cur[m - 1].out_value))
+        i += m
+    return tuple(chains)
+
+
 def chain_graph(layers: Sequence[ConvLayer], name: str = "chain",
                 relu: bool = True, dtype: str = "float32") -> NetworkGraph:
     """The old implicit contract, made explicit: a linear conv stack

@@ -26,7 +26,7 @@ accumulation order (and therefore rounding) is identical.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -730,3 +730,514 @@ def validate_kernel_program(kp: KernelProgram) -> None:
         raise LoweringError(
             f"{l.name}: write masks cover {vr_sum}x{vc_sum}, valid "
             f"output is {kp.out_h}x{kp.out_w}")
+
+
+# ---------------------------------------------------------------------------
+# Whole-graph persistent kernel lowering
+# ---------------------------------------------------------------------------
+
+# graph operand-table column layout: the per-layer 8 columns, then the
+# cross-layer steering the fused kernel needs — one FLAT row per
+# (node, tile, chain step), int32, prefetched to SMEM:
+#   NODE, K      which chain node this step belongs to + its chain pos
+#   WOFF, BOFF   base offsets of this step's slice of the flat weight /
+#                bias (and requant) buffers
+#   OY, OX       output block index for the kernel OUTPUT operand —
+#                (ty, tx) on the final node's rows, pinned to (0, 0)
+#                elsewhere so non-final steps touch one fixed block
+GRAPH_OP_COLS = 14
+(GOP_IY, GOP_IX, GOP_TY, GOP_TX, GOP_C0, GOP_WC0, GOP_VR, GOP_VC,
+ GOP_NODE, GOP_K, GOP_WOFF, GOP_BOFF, GOP_OY, GOP_OX) = range(14)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainNodeSpec:
+    """One conv node of a fused chain, as plain lowering data.
+
+    ``kp`` is the node's ordinary per-layer KernelProgram — the graph
+    kernel replays exactly its table/geometry so fused output matches
+    the per-layer megakernel. ``in_value``/``out_value`` name the
+    activation edges (a fused residual add's output name when the add
+    rides this conv's epilogue); ``residual_value`` names the extra
+    epilogue operand, or None. Value names only wire up the arena —
+    they never reach the kernel body.
+    """
+    name: str
+    kp: KernelProgram
+    in_value: str
+    out_value: str
+    residual_value: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaValue:
+    """Lifetime + layout of one activation held in the VMEM arena.
+
+    ``birth`` is the producing chain-node index (-1 = the chain input,
+    written by the prologue copy), ``death`` the last node that reads
+    it. ``shape`` is the (rows, cols, channels) extent the value needs
+    in its slot; ``pad`` is the (row, col) origin of the valid region —
+    the max conv-reader halo, so every reader finds its zero-padding
+    in place instead of re-padding between layers.
+    """
+    name: str
+    birth: int
+    death: int
+    shape: Tuple[int, int, int]
+    pad: Tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaPlan:
+    """First-fit slot assignment for the chain's live activations."""
+    values: Tuple[ArenaValue, ...]
+    slots: Tuple[int, ...]                       # values[i] -> slot id
+    slot_shapes: Tuple[Tuple[int, int, int], ...]
+
+    def value(self, name: str) -> ArenaValue:
+        for v in self.values:
+            if v.name == name:
+                return v
+        raise KeyError(name)
+
+    def slot_of(self, name: str) -> int:
+        for v, s in zip(self.values, self.slots):
+            if v.name == name:
+                return s
+        raise KeyError(name)
+
+    @property
+    def slot_bytes_f32(self) -> int:
+        return 4 * sum(h * w * c for h, w, c in self.slot_shapes)
+
+
+def plan_arena(values: Sequence[ArenaValue]) -> ArenaPlan:
+    """Assign arena slots first-fit over the liveness intervals.
+
+    ``values`` must arrive in birth order. A slot is reusable only when
+    its occupant's death is STRICTLY before the new value's birth: the
+    producing node zeroes its output slot while it is still reading its
+    own inputs, so a value that dies AT the producing node must keep
+    its slot through that node. Slot shapes grow to the elementwise max
+    of everything assigned to them.
+    """
+    order = [v.birth for v in values]
+    if order != sorted(order):
+        raise LoweringError(f"arena values out of birth order: {order}")
+    slot_death: List[int] = []
+    shapes: List[List[int]] = []
+    assign: List[int] = []
+    for v in values:
+        if v.death < v.birth:
+            raise LoweringError(f"{v.name}: dies ({v.death}) before "
+                             f"birth ({v.birth})")
+        si = next((i for i, d in enumerate(slot_death) if d < v.birth),
+                  None)
+        if si is None:
+            si = len(slot_death)
+            slot_death.append(v.death)
+            shapes.append(list(v.shape))
+        else:
+            slot_death[si] = v.death
+            shapes[si] = [max(a, b) for a, b in zip(shapes[si], v.shape)]
+        assign.append(si)
+    return ArenaPlan(tuple(values), tuple(assign),
+                     tuple(tuple(s) for s in shapes))
+
+
+def _graph_weight_chunk(kp: KernelProgram, quantized: bool) -> int:
+    """Elements of flat weight one grid step consumes for this node.
+
+    Both precisions pack weights in their natural layout: grouped
+    layers' ``fan_width`` is the per-group fan (``in_c // groups``),
+    and the whole tensor rides in the node's single grid step.
+    """
+    del quantized               # both precisions share the layout
+    l = kp.wave.program.layer
+    return l.kernel * l.kernel * kp.fan_width * kp.out_c_pad
+
+
+def _chain_layout(specs: Sequence[ChainNodeSpec], quantized: bool):
+    """Shared arena/offset layout for lowering and cost estimation.
+
+    Tolerates chains whose non-final values leak to outside consumers
+    (the greedy partitioner costs such prefixes while growing them);
+    ``lower_graph_kernel`` layers the strict checks on top.
+    """
+    if not specs:
+        raise LoweringError("empty chain")
+    input_value = specs[0].in_value
+    names = [s.out_value for s in specs]
+    if len(set(names)) != len(names) or input_value in names:
+        raise LoweringError(f"chain value names collide: {names}")
+
+    conv_readers: dict = {}
+    res_readers: dict = {}
+    for i, s in enumerate(specs):
+        conv_readers.setdefault(s.in_value, []).append(i)
+        if s.residual_value is not None:
+            res_readers.setdefault(s.residual_value, []).append(i)
+
+    input_in_arena = (conv_readers.get(input_value, []) != [0]
+                      or input_value in res_readers)
+
+    def _extent(name: str, birth: int) -> ArenaValue:
+        convs = conv_readers.get(name, [])
+        resis = res_readers.get(name, [])
+        pad = max((specs[i].kp.wave.program.layer.pad for i in convs),
+                  default=0)
+        hs, ws, cs = [], [], []
+        if birth >= 0:
+            pkp = specs[birth].kp
+            hs.append(pad + pkp.out_h_pad)
+            ws.append(pad + pkp.out_w_pad)
+            cs.append(specs[birth].kp.wave.program.layer.out_c)
+        else:                       # the chain input, copied in whole
+            hkp = specs[0].kp
+            hpad = specs[0].kp.wave.program.layer.pad
+            hs.append(pad - hpad + hkp.pad_h)
+            ws.append(pad - hpad + hkp.pad_w)
+            cs.append(hkp.in_c_kpad)
+        for i in convs:
+            rkp = specs[i].kp
+            rpad = specs[i].kp.wave.program.layer.pad
+            hs.append(pad - rpad + rkp.pad_h)
+            ws.append(pad - rpad + rkp.pad_w)
+            cs.append(rkp.in_c_kpad)
+        for i in resis:
+            rkp = specs[i].kp
+            hs.append(pad + rkp.out_h_pad)
+            ws.append(pad + rkp.out_w_pad)
+            cs.append(rkp.out_c_pad)
+        death = max(convs + resis, default=max(birth, 0))
+        return ArenaValue(name, birth, death,
+                          (max(hs), max(ws), max(cs)), (pad, pad))
+
+    vals: List[ArenaValue] = []
+    if input_in_arena:
+        vals.append(_extent(input_value, -1))
+    for i, s in enumerate(specs[:-1]):      # final value goes to o_ref
+        vals.append(_extent(s.out_value, i))
+    arena = plan_arena(vals)
+
+    w_chunks = tuple(_graph_weight_chunk(s.kp, quantized) for s in specs)
+    w_offsets, off = [], 0
+    for s, ch in zip(specs, w_chunks):
+        w_offsets.append(off)
+        off += s.kp.n_chain * ch
+    w_max = max(w_chunks)
+    # every WOFF window must fit: the last step of node i reads
+    # [off_i + (n_chain-1)*chunk_i, ... + w_max)
+    w_total = max(o + (s.kp.n_chain - 1) * ch + w_max
+                  for o, s, ch in zip(w_offsets, specs, w_chunks))
+    b_offsets, boff = [], 0
+    for s in specs:
+        b_offsets.append(boff)
+        boff += s.kp.out_c_pad
+    b_max = max(s.kp.out_c_pad for s in specs)
+    b_total = b_offsets[-1] + b_max
+
+    steps, lo = [], 0
+    for s in specs:
+        steps.append(lo)
+        lo += s.kp.n_tiles * s.kp.n_chain
+    return (input_value, input_in_arena, arena,
+            w_chunks, tuple(w_offsets), w_max, w_total,
+            tuple(b_offsets), b_max, b_total, tuple(steps), lo)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphKernelProgram:
+    """A fused chain of KernelPrograms lowered for ONE pallas_call.
+
+    The per-layer megakernel already keeps each layer's partial-sum
+    chain in VMEM; this is the next rung of the paper's streaming
+    hierarchy — Du et al.'s layer-sequencing controller in software.
+    The grid becomes the concatenation of every node's (tile, chain)
+    steps (chain innermost per tile, preserving each node's
+    accumulation order bit-for-bit), the operand table grows NODE/K
+    dispatch and flat-buffer offset columns, and inter-layer
+    activations never leave VMEM: each liveness interval from the
+    chain is assigned a scratch-arena slot (`plan_arena`), producers
+    write their masked epilogue blocks into their slot at the value's
+    layout pad, and consumers window it back out — residual operands
+    included, replacing the per-layer path's pad_residual round-trip.
+
+    Weights/bias/requant vectors for the whole chain ride in flat 1-D
+    operands; each grid step DMAs only its own slice (a ``w_max``-sized
+    window at the table's WOFF/BOFF), so per-step VMEM stays bounded by
+    the largest single step, not the whole chain.
+
+    The port lowers exactly the reference's program (the TPU budgets
+    included) and runs it on the card as one cooperative launch of
+    ``csrc/wave_replay_graph.cu`` (K2) or ``wave_replay_graph_q.cu``
+    (K4): arena slots in device memory, a grid-wide barrier between
+    nodes, and ``batch_block`` unused, since images never interact.
+    """
+    nodes: Tuple[ChainNodeSpec, ...]
+    input_value: str
+    input_in_arena: bool
+    quantized: bool
+    arena: ArenaPlan
+    node_steps: Tuple[int, ...]         # first flat step of each node
+    total_steps: int
+    w_chunks: Tuple[int, ...]           # per-step weight elems, per node
+    w_offsets: Tuple[int, ...]
+    w_max: int
+    w_total: int
+    b_offsets: Tuple[int, ...]
+    b_max: int
+    b_total: int
+    table: Tuple[Tuple[int, ...], ...]
+    # images per grid step: the fused kernel's grid becomes
+    # (batch-block, flat step) — each batch block replays the whole
+    # chain through its own arena/accumulator slice
+    batch_block: int = 1
+
+    def operand_table(self) -> np.ndarray:
+        """(total_steps, 14) int32 SMEM operand table."""
+        return np.asarray(self.table, np.int32)
+
+    @property
+    def out_kp(self) -> KernelProgram:
+        return self.nodes[-1].kp
+
+    @property
+    def out_layer(self) -> ConvLayer:
+        return self.nodes[-1].kp.wave.program.layer
+
+    def acc_shape(self, multi_only: bool = False) -> Tuple[int, int, int]:
+        """Shared accumulator extent ((1, 1, 1) token when unused)."""
+        kps = [s.kp for s in self.nodes
+               if not multi_only or s.kp.n_chain > 1]
+        if not kps:
+            return (1, 1, 1)
+        return (max(k.acc_h for k in kps), max(k.acc_w for k in kps),
+                max(k.out_c_pad for k in kps))
+
+    @property
+    def vmem_bytes(self) -> int:
+        """Per-step fp32 working-set model: arena slots, shared
+        accumulator, input window and output block scale per image
+        (``batch_block``); the flat weight/bias windows are
+        batch-shared. Deliberately precision-independent (4 B/elem)
+        so fp32 and int8 partition a graph identically."""
+        h0 = self.nodes[0].kp
+        x_elems = (h0.pad_h * h0.pad_w * h0.in_c_kpad
+                   if self.input_in_arena
+                   else h0.ih * h0.iw * h0.c_width)
+        kl = self.out_kp
+        ah, aw, ac = self.acc_shape()
+        bb = self.batch_block
+        return (bb * self.arena.slot_bytes_f32
+                + 4 * (bb * (ah * aw * ac + x_elems
+                             + kl.blk_h * kl.blk_w * kl.out_c_pad)
+                       + self.w_max + self.b_max))
+
+    @property
+    def geometry(self):
+        """Everything the compiled kernel closure bakes in."""
+        return (("graphkernel", self.quantized, self.input_in_arena,
+                 self.batch_block,
+                 self.arena.slots, self.arena.slot_shapes,
+                 tuple((v.birth, v.death, v.shape, v.pad)
+                       for v in self.arena.values),
+                 self.node_steps, self.total_steps,
+                 self.w_chunks, self.w_offsets, self.w_max, self.w_total,
+                 self.b_offsets, self.b_max, self.b_total)
+                + tuple(s.kp.geometry + (s.residual_value is not None,)
+                        for s in self.nodes))
+
+    def describe(self) -> str:
+        names = "+".join(s.name for s in self.nodes)
+        return (f"{names}: 1 pallas_call, {self.total_steps} grid steps, "
+                f"{len(self.arena.slot_shapes)}-slot arena "
+                f"({self.arena.slot_bytes_f32 // 1024} KiB f32), "
+                f"table {self.total_steps}x{GRAPH_OP_COLS} SMEM")
+
+
+def chain_vmem_bytes(specs: Sequence[ChainNodeSpec],
+                     quantized: bool = False,
+                     batch_block: int = 1) -> int:
+    """Working-set estimate of a (possibly still-growing) chain.
+
+    The greedy partitioner calls this on prefixes whose values may
+    still leak to later nodes, so it skips ``lower_graph_kernel``'s
+    strict consumption checks but shares its exact layout math.
+    ``batch_block`` scales the per-image terms (arena, accumulator,
+    input window, output block) like ``GraphKernelProgram.vmem_bytes``.
+    """
+    (_, input_in_arena, arena, _, _, w_max, _, _, b_max, _, _, _) = \
+        _chain_layout(specs, quantized)
+    h0 = specs[0].kp
+    x_elems = (h0.pad_h * h0.pad_w * h0.in_c_kpad if input_in_arena
+               else h0.ih * h0.iw * h0.c_width)
+    kl = specs[-1].kp
+    accs = [s.kp for s in specs]
+    acc = (max(k.acc_h for k in accs) * max(k.acc_w for k in accs)
+           * max(k.out_c_pad for k in accs))
+    bb = max(1, int(batch_block))
+    return (bb * arena.slot_bytes_f32
+            + 4 * (bb * (acc + x_elems
+                         + kl.blk_h * kl.blk_w * kl.out_c_pad)
+                   + w_max + b_max))
+
+
+def lower_graph_kernel(specs: Sequence[ChainNodeSpec], *,
+                       quantized: bool = False,
+                       batch_block: int = 1) -> GraphKernelProgram:
+    """Lower a fused chain of per-layer KernelPrograms to one program.
+
+    Each node's rows replay its own table verbatim (same IY/IX/C0/VR/VC,
+    chain innermost per tile), extended with NODE/K dispatch, flat
+    weight/bias offsets, and the output-block steering; head-node rows
+    keep their input-window origins only when the chain input stays a
+    kernel operand (windowed mode) — when later nodes also read it
+    (e.g. a residual off the chain input) it is copied into the arena
+    once by the ``t == 0`` prologue and the columns are zeroed.
+    """
+    (input_value, input_in_arena, arena, w_chunks, w_offsets, w_max,
+     w_total, b_offsets, b_max, b_total, node_steps, total_steps) = \
+        _chain_layout(specs, quantized)
+
+    visible = {input_value}
+    for i, s in enumerate(specs):
+        l = s.kp.wave.program.layer
+        if s.in_value not in visible:
+            raise LoweringError(
+                f"{s.name}: input {s.in_value!r} not produced earlier "
+                f"in the chain")
+        if s.residual_value is not None and s.residual_value not in visible:
+            raise LoweringError(
+                f"{s.name}: residual {s.residual_value!r} not produced "
+                f"earlier in the chain")
+        if s.kp.residual != (s.residual_value is not None):
+            raise LoweringError(
+                f"{s.name}: KernelProgram residual={s.kp.residual} "
+                f"disagrees with residual_value={s.residual_value!r}")
+        visible.add(s.out_value)
+    # every internal value is fully consumed inside the chain (the cut
+    # validity the partitioner guarantees), and wiring geometry agrees
+    producer = {s.out_value: i for i, s in enumerate(specs)}
+    for i, s in enumerate(specs):
+        for val, kind in ((s.in_value, "conv"),
+                          (s.residual_value, "residual")):
+            if val is None or val == input_value:
+                continue
+            p = specs[producer[val]]
+            pl_, rl = p.kp.wave.program.layer, s.kp.wave.program.layer
+            if kind == "conv":
+                ok = (rl.in_h == p.kp.out_h and rl.in_w == p.kp.out_w
+                      and rl.in_c == pl_.out_c)
+            else:
+                ok = (s.kp.out_h == p.kp.out_h and s.kp.out_w == p.kp.out_w
+                      and rl.out_c == pl_.out_c)
+            if not ok:
+                raise LoweringError(
+                    f"{s.name}: {kind} input {val!r} geometry "
+                    f"mismatch with producer {p.name}")
+    for i, s in enumerate(specs[:-1]):
+        if not any(t.in_value == s.out_value
+                   or t.residual_value == s.out_value
+                   for t in specs[i + 1:]):
+            raise LoweringError(
+                f"{s.name}: internal value {s.out_value!r} has no "
+                f"reader inside the chain — invalid cut")
+
+    last = len(specs) - 1
+    rows: List[Tuple[int, ...]] = []
+    for ni, s in enumerate(specs):
+        kp = s.kp
+        windowed_head = ni == 0 and not input_in_arena
+        for t in range(kp.n_tiles):
+            for k in range(kp.n_chain):
+                iy, ix, ty, tx, c0, _, vr, vc = kp.table[k][t]
+                sy, sx, sc0 = (iy, ix, c0) if windowed_head else (0, 0, 0)
+                oy, ox = (ty, tx) if ni == last else (0, 0)
+                rows.append((sy, sx, ty, tx, sc0, 0, vr, vc,
+                             ni, k, w_offsets[ni] + k * w_chunks[ni],
+                             b_offsets[ni], oy, ox))
+
+    gkp = GraphKernelProgram(
+        nodes=tuple(specs), input_value=input_value,
+        input_in_arena=input_in_arena, quantized=quantized, arena=arena,
+        node_steps=node_steps, total_steps=total_steps,
+        w_chunks=w_chunks, w_offsets=w_offsets, w_max=w_max,
+        w_total=w_total, b_offsets=b_offsets, b_max=b_max,
+        b_total=b_total, table=tuple(rows),
+        batch_block=max(1, int(batch_block)))
+    validate_graph_kernel(gkp)
+    return gkp
+
+
+def validate_graph_kernel(gkp: GraphKernelProgram) -> None:
+    """Invariants the fused kernel's grid + arena bake in.
+
+    1. The flat table is dense (total_steps, 14); each node's rows are
+       contiguous at node_steps[ni], tile-major with its chain
+       innermost, and replay its per-layer table's TY/TX/VR/VC.
+    2. Arena safety: values sharing a slot have disjoint lifetimes
+       (previous occupant dies strictly before the next is born) and
+       every slot is at least as large as each value assigned to it;
+       reader/producer extents fit inside the slot.
+    3. Flat-buffer offsets keep every WOFF/BOFF fetch window inside the
+       padded buffers.
+    4. Output steering: final-node rows raster-tile the output, all
+       other rows pin the output block to (0, 0).
+    """
+    tab = gkp.operand_table()
+    if tab.shape != (gkp.total_steps, GRAPH_OP_COLS):
+        raise LoweringError(
+            f"graph table {tab.shape} != ({gkp.total_steps}, "
+            f"{GRAPH_OP_COLS})")
+    last = len(gkp.nodes) - 1
+    for ni, s in enumerate(gkp.nodes):
+        kp = s.kp
+        lo = gkp.node_steps[ni]
+        n = kp.n_tiles * kp.n_chain
+        hi = gkp.node_steps[ni + 1] if ni + 1 < len(gkp.nodes) \
+            else gkp.total_steps
+        if hi - lo != n:
+            raise LoweringError(f"{s.name}: rows [{lo}, {hi}) != {n} steps")
+        r = 0
+        for t in range(kp.n_tiles):
+            for k in range(kp.n_chain):
+                row = tab[lo + r]
+                src = kp.table[k][t]
+                if (row[GOP_NODE], row[GOP_K]) != (ni, k):
+                    raise LoweringError(
+                        f"{s.name} row {r}: dispatch "
+                        f"({row[GOP_NODE]}, {row[GOP_K]}) != ({ni}, {k})")
+                if (row[GOP_TY], row[GOP_TX], row[GOP_VR],
+                        row[GOP_VC]) != (src[2], src[3], src[6], src[7]):
+                    raise LoweringError(
+                        f"{s.name} row {r}: tile/mask columns deviate "
+                        f"from the per-layer table")
+                want_oyx = (src[2], src[3]) if ni == last else (0, 0)
+                if (row[GOP_OY], row[GOP_OX]) != want_oyx:
+                    raise LoweringError(
+                        f"{s.name} row {r}: output steering "
+                        f"({row[GOP_OY]}, {row[GOP_OX]}) != {want_oyx}")
+                if row[GOP_WOFF] + gkp.w_max > gkp.w_total:
+                    raise LoweringError(
+                        f"{s.name} row {r}: weight window "
+                        f"{row[GOP_WOFF]}+{gkp.w_max} > {gkp.w_total}")
+                if row[GOP_BOFF] + gkp.b_max > gkp.b_total:
+                    raise LoweringError(
+                        f"{s.name} row {r}: bias window "
+                        f"{row[GOP_BOFF]}+{gkp.b_max} > {gkp.b_total}")
+                r += 1
+    occupants: dict = {}
+    for v, si in zip(gkp.arena.values, gkp.arena.slots):
+        shape = gkp.arena.slot_shapes[si]
+        if any(a > b for a, b in zip(v.shape, shape)):
+            raise LoweringError(
+                f"arena: {v.name} extent {v.shape} overflows slot "
+                f"{si} {shape}")
+        for u in occupants.get(si, []):
+            if not (u.death < v.birth or v.death < u.birth):
+                raise LoweringError(
+                    f"arena: {u.name} [{u.birth}, {u.death}] and "
+                    f"{v.name} [{v.birth}, {v.death}] alias slot {si} "
+                    f"while both live")
+        occupants.setdefault(si, []).append(v)

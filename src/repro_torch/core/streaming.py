@@ -1,4 +1,5 @@
-"""Streaming graph executor, megakernel mode (paper §3 + §5 combined).
+"""Streaming graph executor, megakernel and whole-graph modes (paper §3
++ §5 combined).
 
 The counterpart of ``repro/core/streaming.py`` for the megakernel graph
 path at fp32 (kernel K1) and int8 (kernel K3, the same tables): every
@@ -11,6 +12,12 @@ kernels/wave_replay_q). Residual adds that ``residual_fusion``
 selects run in the producing conv's kernel epilogue; the others run as
 explicit elementwise adds. Activations are dropped per the graph's
 liveness plan the moment their last consumer has fired.
+
+``mode="graphkernel"`` partitions the conv schedule into fused chains
+(``graph_chain_programs``) and runs each multi-node chain as ONE launch
+of the whole-chain kernel (K2 at fp32, K4 at int8,
+``kernels/wave_replay{,_q}/graph.py``); a single-node chain falls back
+to the per-layer launch.
 
 ``conv2d_direct`` / ``maxpool_direct`` / ``run_graph_reference`` are the
 direct (undecomposed) reference the executor is tested against: NHWC
@@ -28,12 +35,13 @@ import torch.nn.functional as F
 from repro_torch.core.decomposition import (ConvLayer, Plan, evaluate,
                                             plan_decomposition)
 from repro_torch.core.graph import (INPUT, NetworkGraph, check_graph_input,
-                                    conv_keyed, plan_buffers,
+                                    conv_keyed, fusible_chains, plan_buffers,
                                     residual_fusion, topological_schedule)
 from repro_torch.core.schedule import (DEFAULT_VMEM_BUDGET as _VMEM_DEFAULT,
-                                       KernelProgram, TileProgram,
-                                       compile_layer, lower_kernel_program,
-                                       partition_waves)
+                                       ChainNodeSpec, KernelProgram,
+                                       TileProgram, chain_vmem_bytes,
+                                       compile_layer, lower_graph_kernel,
+                                       lower_kernel_program, partition_waves)
 from repro_torch.runtime.errors import PlanError
 
 # Executor modes of the reference that this package does not run yet,
@@ -43,7 +51,6 @@ _NOT_PORTED = {
     "scan": "queue 1 item 2 (layer executors without custom kernels)",
     "jit": "queue 1 item 2 (layer executors without custom kernels)",
     "interpret": "queue 1 item 2 (layer executors without custom kernels)",
-    "graphkernel": "queue 1 item 6 (whole-graph mode, kernels K2/K4)",
 }
 
 
@@ -55,11 +62,11 @@ def check_mode(mode: str, precision: str = "fp32") -> None:
     if precision == "int8" and mode not in ("megakernel", "graphkernel"):
         raise ValueError(
             "precision='int8' runs on the quantized megakernel only: "
-            "pass mode='megakernel'")
+            "pass mode='megakernel' or mode='graphkernel'")
     if mode in _NOT_PORTED:
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet: ROADMAP {_NOT_PORTED[mode]}")
-    if mode != "megakernel":
+    if mode not in ("megakernel", "graphkernel"):
         raise ValueError(f"unknown executor mode {mode!r} (expected "
                          f"megakernel | graphkernel | wave | scan/jit | "
                          f"interpret)")
@@ -164,15 +171,88 @@ def graph_kernel_programs(
         for name, p in programs.items())
 
 
+def graph_chain_programs(graph: NetworkGraph, programs,
+                         vmem_budget: Optional[int] = _VMEM_DEFAULT,
+                         quantized: bool = False,
+                         batch: int = 1):
+    """Partition a graph into fused chains and lower each multi-node
+    chain to its whole-chain ``GraphKernelProgram``.
+
+    Returns ``(chains, kprogs, gkps)``: the ``FusedChain`` partition in
+    schedule order, the per-node ``KernelProgram`` map (single-node
+    chains fall back to these per-layer launches), and the
+    ``GraphKernelProgram`` per multi-node chain keyed by its HEAD conv
+    name. Deterministic for a (graph, programs, budget, precision,
+    batch) tuple, so operand tables and the forward derive the
+    identical partition independently.
+
+    Chain membership is decided at the per-image footprint (a chain
+    valid at one image per step stays fusible at any batch); each
+    chain is lowered with the largest per-step image block whose
+    whole-chain arena and accumulator fit the budget, as the reference
+    lowers it.
+    """
+    programs = conv_keyed(graph, programs, "programs")
+    kprogs = graph_kernel_programs(graph, programs, vmem_budget, batch)
+    chains = fusible_chains(graph, kprogs, vmem_budget=vmem_budget,
+                            quantized=quantized)
+    epi = _graph_epilogues(graph)
+    by_name = {n.name: n for n in graph.nodes}
+    gkps = {}
+    for c in chains:
+        if len(c.convs) < 2:
+            continue
+        specs = [ChainNodeSpec(name=name, kp=kprogs[name],
+                               in_value=by_name[name].inputs[0],
+                               out_value=epi[name][2],
+                               residual_value=epi[name][1])
+                 for name in c.convs]
+        gkps[c.convs[0]] = lower_graph_kernel(
+            specs, quantized=quantized,
+            batch_block=_chain_batch_block(specs, quantized, vmem_budget,
+                                           batch))
+    return chains, kprogs, gkps
+
+
+def _chain_batch_block(specs, quantized: bool,
+                       vmem_budget: Optional[int], batch: int) -> int:
+    """Largest images-per-step block whose whole-chain footprint (arena
+    slots + accumulator + input/output blocks, all per image) fits
+    ``vmem_budget``. ``chain_vmem_bytes`` is affine in the block size
+    (weights and bias are batch-shared), so the bound solves in two
+    evaluations. ``None`` budget takes the full batch."""
+    bb = max(1, int(batch))
+    if vmem_budget is None or bb == 1:
+        return bb
+    b1 = chain_vmem_bytes(specs, quantized=quantized, batch_block=1)
+    per = chain_vmem_bytes(specs, quantized=quantized, batch_block=2) - b1
+    if per <= 0:
+        return bb
+    fit = (vmem_budget - (b1 - per)) // per
+    return max(1, min(bb, int(fit)))
+
+
 def graph_operands(graph: NetworkGraph, programs,
                    mode: str = "megakernel",
                    vmem_budget: Optional[int] = _VMEM_DEFAULT,
                    precision: str = "fp32", batch: int = 1,
                    device="cuda") -> "OrderedDict[str, torch.Tensor]":
-    """Per-conv-node ``(n_chain, n_tiles, 8)`` int32 operand tables on
-    ``device``, matching ``graph_forward_fn``. Pass the same ``batch``
-    as the forward builder."""
+    """Operand tables on ``device`` matching ``graph_forward_fn``: per
+    conv node the ``(n_chain, n_tiles, 8)`` int32 table in megakernel
+    mode; in graphkernel mode one table per fused chain, keyed by its
+    head conv, ``(total_steps, 14)`` for a multi-node chain and the
+    per-layer table for a single-node one. Pass the same ``batch`` as
+    the forward builder."""
     check_mode(mode, precision)
+    if mode == "graphkernel":
+        chains, kprogs, gkps = graph_chain_programs(
+            graph, programs, vmem_budget,
+            quantized=precision == "int8", batch=batch)
+        return OrderedDict(
+            (c.convs[0], torch.as_tensor(
+                gkps[c.convs[0]].operand_table() if c.convs[0] in gkps
+                else kprogs[c.convs[0]].operand_table(), device=device))
+            for c in chains)
     return OrderedDict(
         (name, torch.as_tensor(kp.operand_table(), device=device))
         for name, kp in graph_kernel_programs(
@@ -188,25 +268,36 @@ def graph_forward_fn(graph: NetworkGraph, programs,
     """Whole-graph forward over pre-lowered programs.
 
     Returns ``f(x, weights, ops) -> y`` where ``weights`` maps conv node
-    name -> (w, b) and ``ops`` maps node name -> operand table
-    (``graph_operands``). Each conv node is one wave-replay launch;
-    residual adds fold into the producing conv's epilogue where
+    name -> (w, b) and ``ops`` maps node (or chain head) name -> operand
+    table (``graph_operands``). In megakernel mode each conv node is one
+    wave-replay launch; in graphkernel mode each multi-node fused chain
+    is one whole-chain launch at its head and its other nodes are
+    skipped, while a single-node chain takes the per-layer launch.
+    Residual adds fold into the producing conv's epilogue where
     ``residual_fusion`` allows, and run as explicit adds elsewhere.
 
     ``precision="int8"`` walks the same schedule and replays the same
-    tables on the fixed-point datapath (kernel K3) over a calibrated
-    ``qgraph`` (``quant.calibrate.QuantizedGraph``): ``weights`` are
-    ``qgraph.device_weights(device)``, a float input is quantized at the
-    input's scale (an int8 one is taken as codes), raw int8 flows along
-    every edge, and residual adds are int32 adds with a clip.
-    ``dequantize=False`` returns the raw int8 output.
+    tables on the fixed-point datapath (kernels K3 and K4) over a
+    calibrated ``qgraph`` (``quant.calibrate.QuantizedGraph``):
+    ``weights`` are ``qgraph.device_weights(device)``, a float input is
+    quantized at the input's scale (an int8 one is taken as codes), raw
+    int8 flows along every edge, and residual adds are int32 adds with a
+    clip. ``dequantize=False`` returns the raw int8 output.
     """
     check_mode(mode, precision)
     programs = conv_keyed(graph, programs, "programs")
     sched = topological_schedule(graph)
     bplan = plan_buffers(graph)
     epi = _graph_epilogues(graph)
-    kprogs = graph_kernel_programs(graph, programs, vmem_budget, batch)
+    if mode == "graphkernel":
+        chains, kprogs, gkps = graph_chain_programs(
+            graph, programs, vmem_budget, quantized=precision == "int8",
+            batch=batch)
+        chain_of = {c.convs[0]: c for c in chains}
+        members = {name for c in chains for name in c.convs[1:]}
+    else:
+        kprogs = graph_kernel_programs(graph, programs, vmem_budget, batch)
+        chain_of, members, gkps = {}, set(), {}
     fused_adds = {outv for _, resv, outv in epi.values() if resv is not None}
 
     if precision == "int8":
@@ -216,6 +307,8 @@ def graph_forward_fn(graph: NetworkGraph, programs,
                 "repro_torch.quant.calibrate.calibrate_graph first")
         from repro_torch.core.quantization import (dequantize_int8,
                                                    quantize_int8_sym)
+        from repro_torch.kernels.wave_replay_q.graph import \
+            wave_replay_graph_q
         from repro_torch.kernels.wave_replay_q.kernel import \
             residual_add_i8
         from repro_torch.kernels.wave_replay_q.ops import \
@@ -232,13 +325,25 @@ def graph_forward_fn(graph: NetworkGraph, programs,
                    else quantize_int8_sym(x, in_scale)}
             for i, n in enumerate(sched):
                 if n.op == "conv":
-                    _, resv, outv = epi[n.name]
-                    wq, bq, m, s = weights[n.name]
-                    ps, fc = statics[n.name]
-                    env[outv] = wave_replay_q_layer(
-                        kprogs[n.name], env[n.inputs[0]], wq, bq, m, s,
-                        pre_shift=ps, fan_chunk=fc, table=ops[n.name],
-                        residual=env[resv] if resv is not None else None)
+                    if n.name in members:
+                        pass                # ran inside its chain's launch
+                    elif n.name in gkps:    # a multi-node fused chain
+                        c = chain_of[n.name]
+                        env[c.output_value] = wave_replay_graph_q(
+                            gkps[n.name], env[c.input_value],
+                            [weights[m] for m in c.convs],
+                            pre_shifts=[statics[m][0] for m in c.convs],
+                            fan_chunks=[statics[m][1] for m in c.convs],
+                            table=ops[n.name])
+                    else:
+                        _, resv, outv = epi[n.name]
+                        wq, bq, m, s = weights[n.name]
+                        ps, fc = statics[n.name]
+                        env[outv] = wave_replay_q_layer(
+                            kprogs[n.name], env[n.inputs[0]], wq, bq, m, s,
+                            pre_shift=ps, fan_chunk=fc, table=ops[n.name],
+                            residual=env[resv] if resv is not None
+                            else None)
                 elif n.name not in fused_adds:
                     env[n.name] = residual_add_i8(
                         env[n.inputs[0]], env[n.inputs[1]], n.relu)
@@ -249,6 +354,7 @@ def graph_forward_fn(graph: NetworkGraph, programs,
 
         return forward_q
 
+    from repro_torch.kernels.wave_replay.graph import wave_replay_graph
     from repro_torch.kernels.wave_replay.ops import wave_replay_layer
 
     def forward_mega(x, weights, ops):
@@ -256,12 +362,20 @@ def graph_forward_fn(graph: NetworkGraph, programs,
         env = {INPUT: x}
         for i, n in enumerate(sched):
             if n.op == "conv":
-                _, resv, outv = epi[n.name]
-                w, b = weights[n.name]
-                env[outv] = wave_replay_layer(
-                    kprogs[n.name], env[n.inputs[0]], w, b,
-                    table=ops[n.name],
-                    residual=env[resv] if resv is not None else None)
+                if n.name in members:
+                    pass                    # ran inside its chain's launch
+                elif n.name in gkps:        # a multi-node fused chain
+                    c = chain_of[n.name]
+                    env[c.output_value] = wave_replay_graph(
+                        gkps[n.name], env[c.input_value],
+                        [weights[m] for m in c.convs], table=ops[n.name])
+                else:
+                    _, resv, outv = epi[n.name]
+                    w, b = weights[n.name]
+                    env[outv] = wave_replay_layer(
+                        kprogs[n.name], env[n.inputs[0]], w, b,
+                        table=ops[n.name],
+                        residual=env[resv] if resv is not None else None)
             elif n.name not in fused_adds:
                 y = env[n.inputs[0]] + env[n.inputs[1]]
                 env[n.name] = torch.relu(y) if n.relu else y

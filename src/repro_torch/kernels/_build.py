@@ -2,8 +2,9 @@
 
 ``csrc/<stem>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface under ``build/repro_torch/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. The library is
+checkout, named by a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header
+rebuilds and an unchanged one loads at once. The library is
 loaded with ``ctypes``; callers declare ``argtypes``.
 """
 from __future__ import annotations
@@ -36,6 +37,9 @@ def nvcc_path() -> str:
 
 def _target(stem: str) -> Path:
     h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 

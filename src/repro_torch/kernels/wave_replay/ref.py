@@ -144,8 +144,6 @@ def wave_replay_plain(kp: KernelProgram, xp: torch.Tensor, wp: torch.Tensor,
     out = xp.new_empty((n_bb * bb, kp.out_h_pad, kp.out_w_pad,
                         kp.out_c_pad))
     bh, bw = kp.blk_h, kp.blk_w
-    rows = torch.arange(bh, device=xp.device)[:, None]
-    cols = torch.arange(bw, device=xp.device)[None, :]
     for bi in range(n_bb):
         b0 = bi * bb
         for t in range(kp.n_tiles):
@@ -157,20 +155,36 @@ def wave_replay_plain(kp: KernelProgram, xp: torch.Tensor, wp: torch.Tensor,
                        r[OP_C0]:r[OP_C0] + kp.c_width]
                 w = wp[:, :, r[OP_WC0]:r[OP_WC0] + kp.fan_width, :]
                 acc = acc + step_contrib(kp, x, w)
-            # epilogue of the last chain step: bias, residual, ReLU, pool,
-            # then the masked write of the tile's output block
             r = tab[kp.n_chain - 1][t]
             y0, x0 = r[OP_TY] * bh, r[OP_TX] * bw
-            a = acc + bias[0]
-            if residual is not None:
-                a = a + residual[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw]
-            if kp.relu:
-                a = torch.relu(a)
-            if kp.fuse_pool:
-                a = pool_max_subsampled(a, pool=kp.pool,
-                                        stride=kp.pool_stride,
-                                        out_h=bh, out_w=bw)
-            mask = ((rows < r[OP_VR]) & (cols < r[OP_VC]))[None, :, :, None]
-            out[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw] = torch.where(
-                mask, a, a.new_zeros(()))
+            res = None if residual is None \
+                else residual[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw]
+            out[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw] = epilogue(
+                kp, acc, bias[0], res, r[OP_VR], r[OP_VC])
     return out[:B]
+
+
+def epilogue(kp: KernelProgram, acc: torch.Tensor, bias: torch.Tensor,
+             residual: Optional[torch.Tensor], vr: int,
+             vc: int) -> torch.Tensor:
+    """The last chain step's epilogue over one tile's accumulator: bias
+    (``(out_c_pad,)``), the residual block, ReLU, the fused pool, then
+    the write mask that zeroes rows past ``vr`` and columns past ``vc``.
+    Returns the (bb, blk_h, blk_w, out_c_pad) output block."""
+    a = acc + bias
+    if residual is not None:
+        a = a + residual
+    if kp.relu:
+        a = torch.relu(a)
+    if kp.fuse_pool:
+        a = pool_max_subsampled(a, pool=kp.pool, stride=kp.pool_stride,
+                                out_h=kp.blk_h, out_w=kp.blk_w)
+    return torch.where(block_mask(kp, vr, vc, a.device), a, a.new_zeros(()))
+
+
+def block_mask(kp: KernelProgram, vr: int, vc: int,
+               device) -> torch.Tensor:
+    """(1, blk_h, blk_w, 1) mask of a tile's valid rows and columns."""
+    rows = torch.arange(kp.blk_h, device=device)[:, None]
+    cols = torch.arange(kp.blk_w, device=device)[None, :]
+    return ((rows < vr) & (cols < vc))[None, :, :, None]

@@ -27,7 +27,8 @@ from repro_torch.core.quantization import INT8_QMAX, requantize_i32
 from repro_torch.core.schedule import (OP_C0, OP_IX, OP_IY, OP_TX, OP_TY,
                                        OP_VC, OP_VR, OP_WC0, KernelProgram,
                                        batch_grid)
-from repro_torch.kernels.wave_replay.ref import (pool_max_subsampled,
+from repro_torch.kernels.wave_replay.ref import (block_mask,
+                                                 pool_max_subsampled,
                                                  step_contrib)
 
 
@@ -157,8 +158,6 @@ def wave_replay_q_plain(kp: KernelProgram, xq: torch.Tensor,
     out = xq.new_empty((n_bb * bb, kp.out_h_pad, kp.out_w_pad,
                         kp.out_c_pad))
     bh, bw = kp.blk_h, kp.blk_w
-    rows = torch.arange(bh, device=xq.device)[:, None]
-    cols = torch.arange(bw, device=xq.device)[None, :]
     for bi in range(n_bb):
         b0 = bi * bb
         for t in range(kp.n_tiles):
@@ -171,20 +170,31 @@ def wave_replay_q_plain(kp: KernelProgram, xq: torch.Tensor,
                        r[OP_C0]:r[OP_C0] + kp.c_width]
                 w = wf[:, :, r[OP_WC0]:r[OP_WC0] + kp.fan_width, :]
                 acc = acc + step_contrib(kp, x, w).to(torch.int32)
-            # epilogue of the last chain step: bias, requantize, residual,
-            # pool, then the masked write of the tile's output block
             r = tab[kp.n_chain - 1][t]
             y0, x0 = r[OP_TY] * bh, r[OP_TX] * bw
-            q = requantize_i32(acc + bq[0], m[0], shift[0], pre_shift,
-                               relu=kp.relu and not kp.residual)
-            if residual is not None:
-                q = residual_add_i8(
-                    q, residual[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw], kp.relu)
-            if kp.fuse_pool:
-                q = pool_max_subsampled(q, pool=kp.pool,
-                                        stride=kp.pool_stride,
-                                        out_h=bh, out_w=bw)
-            mask = ((rows < r[OP_VR]) & (cols < r[OP_VC]))[None, :, :, None]
-            out[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw] = torch.where(
-                mask, q, q.new_zeros(()))
+            res = None if residual is None \
+                else residual[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw]
+            out[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw] = epilogue_q(
+                kp, acc, bq[0], m[0], shift[0], pre_shift, res,
+                r[OP_VR], r[OP_VC])
     return out[:B]
+
+
+def epilogue_q(kp: KernelProgram, acc: torch.Tensor, bq: torch.Tensor,
+               m: torch.Tensor, shift: torch.Tensor, pre_shift: int,
+               residual: Optional[torch.Tensor], vr: int,
+               vc: int) -> torch.Tensor:
+    """The last chain step's int32 epilogue over one tile's accumulator:
+    bias, requantize (ReLU folded into the clip only without a
+    residual), the residual add and clip, the int8 pool, then the write
+    mask. ``bq``/``m``/``shift`` are ``(out_c_pad,)``. Returns the int8
+    (bb, blk_h, blk_w, out_c_pad) output block."""
+    q = requantize_i32(acc + bq, m, shift, pre_shift,
+                       relu=kp.relu and not kp.residual)
+    if residual is not None:
+        q = residual_add_i8(q, residual, kp.relu)
+    if kp.fuse_pool:
+        q = pool_max_subsampled(q, pool=kp.pool, stride=kp.pool_stride,
+                                out_h=kp.blk_h, out_w=kp.blk_w)
+    return torch.where(block_mask(kp, vr, vc, q.device), q,
+                       q.new_zeros(()))

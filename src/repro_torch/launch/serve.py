@@ -1,14 +1,17 @@
 """Serve single-image CNN requests through a ``StreamingSession``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --network alexnet \
-      --batch 8 --requests 32 [--precision fp32|int8] [--device cuda|cpu]
+      --batch 8 --requests 32 [--precision fp32|int8] \
+      [--mode megakernel|graphkernel] [--device cuda|cpu]
 
 The chosen network's graph (core/model_zoo.py) is planned and lowered
 once; every ``--batch`` submits share one batched forward of one kernel
-launch per conv node (K1 at fp32, K3 at int8). Weights are random,
-He-normal from ``--seed``. ``--precision int8`` first calibrates the
-graph on two seeded random images. Prints the first flush's time, the
-served rate, ``compiles=``, ``batched calls=`` and the kernel launches.
+launch per conv node (``--mode megakernel``: K1 at fp32, K3 at int8) or
+per fused chain of conv nodes (``--mode graphkernel``: K2 at fp32, K4 at
+int8; a single-node chain takes K1/K3). Weights are random, He-normal
+from ``--seed``. ``--precision int8`` first calibrates the graph on two
+seeded random images. Prints the first flush's time, the served rate,
+``compiles=``, ``batched calls=`` and the kernel launches.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import time
 import torch
 
 from repro_torch.core.model_zoo import network_graph
+from repro_torch.kernels.wave_replay import graph as k2
 from repro_torch.kernels.wave_replay import kernel as k1
+from repro_torch.kernels.wave_replay_q import graph as k4
 from repro_torch.kernels.wave_replay_q import kernel as k3
 from repro_torch.launch.session import StreamingSession, resolve_device
 from repro_torch.models.cnn import init_graph_weights
@@ -41,10 +46,12 @@ def cnn_main(args) -> None:
         calib = torch.randn((2, H, W, C),
                             generator=torch.Generator().manual_seed(7))
         qnet = calibrate_graph(graph, weights, calib.to(device))
-    kernel = k3 if args.precision == "int8" else k1
+    # (per-layer, fused-chain) kernels of the precision
+    kernels = (k3, k4) if args.precision == "int8" else (k1, k2)
     sess = StreamingSession.for_graph(graph, weights,
                                       sram_budget=args.sram_kb * 1024,
                                       max_batch=args.batch, device=device,
+                                      mode=args.mode,
                                       precision=args.precision, qnet=qnet)
     imgs = torch.randn((args.requests, H, W, C), generator=gen).to(device)
 
@@ -53,7 +60,8 @@ def cnn_main(args) -> None:
     _sync(device)
     print(f"compile+first flush: {time.perf_counter() - t0:.3f} s")
 
-    kernel.reset_launch_count()
+    for k in kernels:
+        k.reset_launch_count()
     calls0 = sess.calls
     t0 = time.perf_counter()
     tickets = [sess.submit(imgs[i]) for i in range(args.requests)]
@@ -63,12 +71,16 @@ def cnn_main(args) -> None:
     _sync(device)
     dt = time.perf_counter() - t0
     calls = sess.calls - calls0
+    per_layer, chain = kernels
     print(f"served {args.requests} requests in {dt * 1e3:.1f} ms "
           f"({args.requests / dt:.1f} img/s) on {device}, "
           f"compiles={sess.compile_count}, batched calls={calls}, "
-          f"{args.precision} kernel launches={kernel.launch_count()} "
-          f"plain-version runs={kernel.plain_count()} "
-          f"({len(sess.programs)} per call)")
+          f"{args.mode} {args.precision}: per-layer kernel launches="
+          f"{per_layer.launch_count()} plain-version runs="
+          f"{per_layer.plain_count()}, fused-chain kernel launches="
+          f"{chain.launch_count()} plain-version runs="
+          f"{chain.plain_count()} "
+          f"({sess.health()['launches_per_forward']} per call)")
     print(sess.describe())
 
 
@@ -80,6 +92,8 @@ def main(argv=None):
     ap.add_argument("--sram-kb", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--precision", choices=("fp32", "int8"), default="fp32")
+    ap.add_argument("--mode", choices=("megakernel", "graphkernel"),
+                    default="megakernel")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     cnn_main(ap.parse_args(argv))

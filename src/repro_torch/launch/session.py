@@ -1,11 +1,13 @@
 """Streaming sessions: batched multi-image CNN serving on the card.
 
 The counterpart of ``repro/launch/session.py`` for ``mode="megakernel"``
-at fp32 (kernel K1) and int8 (kernel K3). The session takes a
-``NetworkGraph`` (or a plain layer sequence, wrapped into its chain
-graph), plans and lowers every conv node once at construction, and
-serves each request batch with ONE wave-replay kernel launch per conv
-node. Per batch shape it builds the forward and uploads the operand
+(kernel K1 at fp32, K3 at int8) and ``mode="graphkernel"`` (K2 at fp32,
+K4 at int8). The session takes a ``NetworkGraph`` (or a plain layer
+sequence, wrapped into its chain graph), plans and lowers every conv
+node once at construction, and serves each request batch with ONE
+wave-replay kernel launch per conv node (megakernel) or per fused chain
+of conv nodes (graphkernel; a single-node chain takes the per-layer
+kernel). Per batch shape it builds the forward and uploads the operand
 tables to the device once (``compile_count``), then replays them for
 every call.
 
@@ -30,10 +32,13 @@ from repro_torch.core.graph import (INPUT, NetworkGraph, chain_graph,
                                     conv_keyed)
 from repro_torch.core.schedule import TileProgram
 from repro_torch.core.streaming import (check_mode, compile_graph,
+                                        graph_chain_programs,
                                         graph_forward_fn, graph_operands,
                                         plan_graph)
 from repro_torch.core.quantization import quantize_int8_sym
+from repro_torch.kernels.wave_replay import graph as k2
 from repro_torch.kernels.wave_replay import kernel as k1
+from repro_torch.kernels.wave_replay_q import graph as k4
 from repro_torch.kernels.wave_replay_q import kernel as k3
 from repro_torch.quant.calibrate import quantized_graph_from_network
 from repro_torch.runtime.errors import DeadlineExceeded, Overloaded
@@ -60,9 +65,10 @@ def resolve_device(device=None) -> torch.device:
 class StreamingSession:
     """One (graph, plan-set) serving session, one forward per batch shape.
 
-    ``mode`` must be ``"megakernel"``; the reference's other modes,
-    ``mode="auto"``, ``fallback``, ``guard`` and ``tracer`` raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    ``mode`` is ``"megakernel"`` or ``"graphkernel"``; the reference's
+    other modes, ``mode="auto"``, ``fallback``, ``guard`` and ``tracer``
+    raise ``NotImplementedError`` naming the ROADMAP item that ports
+    them.
 
     ``precision="int8"`` serves the fixed-point datapath: pass a
     calibrated ``qnet``, a ``QuantizedGraph`` (``quant/calibrate.py``) or,
@@ -149,6 +155,7 @@ class StreamingSession:
         self._results: Dict[int, torch.Tensor] = {}
         self._expired: set = set()
         self._next_ticket = 0
+        self._chain_lowering = None
 
     @classmethod
     def for_network(cls, layers: Sequence[ConvLayer], weights,
@@ -323,17 +330,40 @@ class StreamingSession:
     def pending(self) -> int:
         return len(self._pending)
 
+    def chains(self):
+        """``(chains, kprogs, gkps)`` of the graphkernel lowering at
+        ``max_batch`` (``graph_chain_programs``), the partition the
+        forward replays; ``None`` in megakernel mode."""
+        if self.mode != "graphkernel":
+            return None
+        if self._chain_lowering is None:
+            self._chain_lowering = graph_chain_programs(
+                self.graph, self._progs, quantized=self.precision == "int8",
+                batch=self.max_batch)
+        return self._chain_lowering
+
     def health(self) -> dict:
         """Machine-readable serving health: mode, device, the executor of
-        each conv node (one kernel launch each per forward), and the
-        session's counters."""
+        each conv node and the launches of one forward (one per conv node
+        in megakernel mode, one per fused chain in graphkernel mode), and
+        the session's counters."""
+        lowered = self.chains()
+        if lowered is None:
+            node_modes = {name: self.mode for name in self._progs}
+            per_forward = len(self.programs)
+        else:
+            chains, _, gkps = lowered
+            node_modes = {name: ("graphkernel" if c.convs[0] in gkps
+                                 else "megakernel")
+                          for c in chains for name in c.convs}
+            per_forward = len(chains)
         return {
             "graph": self.graph.name,
             "mode": self.mode,
             "precision": self.precision,
             "device": str(self.device),
-            "node_modes": {name: self.mode for name in self._progs},
-            "launches_per_forward": len(self.programs),
+            "node_modes": node_modes,
+            "launches_per_forward": per_forward,
             "counters": {
                 "shed": self.shed,
                 "deadline_expired": self.deadline_expired,
@@ -343,6 +373,10 @@ class StreamingSession:
                 "plain_calls": k1.plain_count(),
                 "kernel_launches_q": k3.launch_count(),
                 "plain_calls_q": k3.plain_count(),
+                "kernel_launches_graph": k2.launch_count(),
+                "plain_calls_graph": k2.plain_count(),
+                "kernel_launches_graph_q": k4.launch_count(),
+                "plain_calls_graph_q": k4.plain_count(),
             },
             "pending": len(self._pending),
             "executables": len(self._executables),
@@ -356,5 +390,13 @@ class StreamingSession:
                  f"device={self.device}, max_batch={self.max_batch}, "
                  f"executables={len(self._executables)}, "
                  f"compiles={self.compile_count}, calls={self.calls}"]
-        lines += ["  " + p.describe() for p in self.programs]
+        lowered = self.chains()
+        if lowered is None:
+            lines += ["  " + p.describe() for p in self.programs]
+        else:
+            chains, kprogs, gkps = lowered
+            lines += ["  " + (gkps[c.convs[0]].describe()
+                              if c.convs[0] in gkps
+                              else kprogs[c.convs[0]].describe())
+                      for c in chains]
         return "\n".join(lines)

@@ -147,9 +147,8 @@ def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):
     assert tsession.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(mode="wave"), dict(mode="graphkernel"),
-                                dict(mode="auto"),
-                                dict(precision="int8", mode="graphkernel"),
+@pytest.mark.parametrize("kw", [dict(mode="wave"), dict(mode="scan"),
+                                dict(mode="auto"), dict(mode="interpret"),
                                 dict(fallback=True), dict(guard=True)])
 def test_unported_options_name_their_roadmap_item(kw):
     tg, tw = tiny()
