@@ -51,14 +51,40 @@ Phases, each printing one JSON line:
 11. ``serve_gq``: the int8 twin: K4 twice per call, K3 never; the raw
     output equals the int32 reference walk and the megakernel session's
     raw output; the SNR is reported.
-12. ``timing``: per AlexNet layer at batch 8, each per-layer kernel's
+12. ``kernel_cs``: hold the streaming conv kernel (K6) against its plain
+    version on the same CUDA tensors (to ``FP32_TOL``), on the operands
+    the wave and scan executors hand it in one AlexNet forward (captured
+    by running each node's executor with a recording conv_fn: the first,
+    a middle and the last call of every node, as views: conv1's stacked
+    windows at stride 4 and K 11, conv3's one-channel slices, every scan
+    step's window and weight chunk) and on shapes of no AlexNet node (Cin
+    130, K 5 at stride 2, K 1, a transposed view the launcher copies).
+13. ``kernel_fcp``: hold the fused conv + ReLU + pool kernel (K5)
+    against its plain version on AlexNet conv1, conv2 and conv5 at batch
+    8 (stride 4; pad 2 and two groups; pad 1 and two groups; 3/2 pools),
+    a 2/2 pool, a 3/3 pool with two groups, and pooled rows that do not
+    fill the plain version's last row block.
+14. ``serve_w``: the same 32 requests through the session in wave mode
+    with (``conv_backend``, ``pool_backend``) = (xla, xla), (pallas,
+    xla), (pallas, fused): 0 / 257 / 256 K6 and 0 / 0 / 3 K5 launches
+    per batched call, no other kernel; outputs within ``FP32_TOL`` of the
+    direct reference, the (xla, xla) one also with cuDNN's TF32 allowed
+    by the process (the direct conv turns it off for itself).
+15. ``serve_s``: the same in scan mode: 0 / 1142 / 1072 K6 and 0 / 0 / 3
+    K5 launches per call.
+16. ``timing``: per AlexNet layer at batch 8, each per-layer kernel's
     median time, its plain version's, a library yardstick the port never
     calls (``library_ms``: cuDNN's ``conv2d + bias + ReLU + max_pool2d``
     for K1, ``torch._int_mm`` on the layer's im2col, per group, gemm
     only, for K3) and the bound; per AlexNet chain the same for K2 and
-    K4 (bound and ``library_ms`` summed over the chain's layers); for
-    each precision and mode the served images per second over windows of
-    at least a second and, from ``torch.profiler`` over served runs, the
+    K4 (bound and ``library_ms`` summed over the chain's layers); per
+    AlexNet forward the same for K6 (the wave path's 257 calls and the
+    scan path's 1072, replayed; cuDNN's conv per call as the yardstick)
+    and K5 (conv1, conv2, conv5; cuDNN's conv + bias + ReLU +
+    ``max_pool2d``), with the profiler's device time beside the CUDA
+    events'; for each precision and mode, and the wave and scan
+    configurations, the served images per second over windows of at
+    least a second and, from ``torch.profiler`` over served runs, the
     device time by kernel, the device's idle share and the host time by
     operation.
 
@@ -418,6 +444,174 @@ def kernel_gq(dev, gen, batch: int) -> dict:
 
 
 
+
+def k6_calls(graph, weights, env, mode: str, skip=()):
+    """The streaming conv calls (K6's operands) of one forward of the wave
+    or scan executor with ``conv_backend="pallas"``, captured by running
+    each conv node's executor (on the reference activations ``env``) with
+    a conv_fn that records ``(node, x view, w view, stride)`` and answers
+    with the direct conv, so the capture launches no kernel. Nodes in
+    ``skip`` (those a fused pool serves) are left out."""
+    from repro_torch.core.streaming import (_partition_waves_cached,
+                                            _scan_executor, _wave_executor,
+                                            compile_graph, conv2d_direct,
+                                            plan_graph)
+    progs = compile_graph(graph, plan_graph(graph))
+    calls = []
+    for n in graph.conv_nodes():
+        if n.name in skip:
+            continue
+        l, p = n.layer, progs[n.name]
+        w, b = weights[n.name]
+
+        def record(xt, wt, name=n.name, s=l.stride):
+            calls.append((name, xt, wt, s))
+            return conv2d_direct(xt, wt, s, 0)
+
+        if mode == "wave":
+            wp = _partition_waves_cached(p)
+            _wave_executor(wp, record, True, env[n.inputs[0]], w, b,
+                           wp.tile_operands())
+        else:
+            _scan_executor(p, record, True, env[n.inputs[0]], w, b,
+                           p.operands())
+    return calls
+
+
+def conv_work(x, w, stride: int, out_numel: int):
+    """(fp32 operations, bytes) of a VALID conv call: each input read
+    once, the output written once."""
+    K, cin_g, cout = w.shape[0], w.shape[2], w.shape[3]
+    ops = 2 * out_numel * K * K * cin_g
+    return ops, 4 * (x.numel() + w.numel() + out_numel)
+
+
+def kernel_cs(dev, gen, calls_by_mode) -> float:
+    """K6 against its plain version on the same CUDA tensors, to
+    ``FP32_TOL`` of the output's max: the first, a middle and the last
+    call of every AlexNet node on the wave and scan paths (views as the
+    executors hand them: conv1's stacked windows at stride 4 and K 11,
+    conv3's one-channel slices, every scan step's window and weight
+    chunk), and shapes of no AlexNet node (Cin 130 over several cin
+    blocks, K 5 at stride 2, K 1, a row count the row block does not
+    divide, a transposed view the launcher copies). Returns the largest
+    error."""
+    import torch
+
+    from repro_torch.kernels.conv_stream.kernel import (conv2d_stream_raw,
+                                                        enclosing_dims)
+    from repro_torch.kernels.conv_stream.ref import conv2d_stream_plain
+    from repro_torch.kernels.wave_replay.ref import fp32_error
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    cases = []
+    for mode, calls in calls_by_mode.items():
+        by_node = {}
+        for c in calls:
+            by_node.setdefault(c[0], []).append(c)
+        for node, cs in by_node.items():
+            picks = sorted({0, len(cs) // 2, len(cs) - 1})
+            for i in picks:
+                _, x, w, s = cs[i]
+                cases.append((f"alexnet.{node} {mode} call {i}/{len(cs)}",
+                              x, w, s))
+    base = rnd(2, 20, 19, 140)
+    cases += [
+        ("cin 130, k3 s1, 13 rows", rnd(2, 15, 12, 130),
+         rnd(3, 3, 130, 70, scale=0.1), 1),
+        ("k5 s2, 9 rows", rnd(3, 21, 19, 5), rnd(5, 5, 5, 7, scale=0.3), 2),
+        ("k1, cout 65", rnd(2, 9, 9, 3), rnd(1, 1, 3, 65), 1),
+        ("k11 s4 view of a wider tensor", base[:, :, 2:17, 3:9],
+         rnd(11, 11, 6, 20, scale=0.1), 4),
+        ("transposed view (copied)", rnd(2, 12, 12, 4).transpose(1, 2),
+         rnd(3, 3, 4, 8), 1)]
+    max_err = 0.0
+    for name, x, w, s in cases:
+        got = conv2d_stream_raw(x, w, stride=s)
+        torch.cuda.synchronize()
+        want = conv2d_stream_plain(x, w, stride=s)
+        torch.cuda.synchronize()
+        err, tol = fp32_error(got, want)
+        finite = bool(torch.isfinite(got).all())
+        emit("kernel_cs", case=name, x=list(x.shape), x_stride=list(
+            x.stride()), in_place=enclosing_dims(x) is not None,
+            w=list(w.shape), stride=s, shape=list(got.shape),
+            max_abs_err=err, tol=tol, max_abs_out=float(want.abs().max()),
+            finite=finite)
+        check(finite and err <= tol,
+              f"{name}: K6 disagrees with its plain version (err {err} > "
+              f"tol {tol}) or is not finite")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def k5_calls(graph, weights, env):
+    """The fused conv + ReLU + pool calls of one AlexNet forward with
+    ``pool_backend="fused"``: (node, padded x, w, b, layer) of every
+    pooled, ReLU'd conv node, on the reference activations."""
+    import torch.nn.functional as F
+    calls = []
+    for n in graph.conv_nodes():
+        l = n.layer
+        if l.pool > 1 and n.relu:
+            p = l.pad
+            x = F.pad(env[n.inputs[0]], (0, 0, p, p, p, p))
+            calls.append((n.name, x.contiguous(), *weights[n.name], l))
+    return calls
+
+
+def kernel_fcp(dev, gen, alex_calls) -> float:
+    """K5 against its plain version on the same CUDA tensors, to
+    ``FP32_TOL``: AlexNet conv1 (stride 4, K 11), conv2 (pad 2, two
+    groups) and conv5 (pad 1, two groups) at batch 8 with 3/2 pools, a
+    non-overlapping 2/2 pool, a 3/3 pool, and pooled rows that do not fill
+    the plain version's last row block. Returns the largest error."""
+    import torch
+
+    from repro_torch.kernels.fused_conv_pool.kernel import \
+        fused_conv_pool_raw
+    from repro_torch.kernels.fused_conv_pool.ref import \
+        fused_conv_pool_plain
+    from repro_torch.kernels.wave_replay.ref import fp32_error
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    cases = [(f"alexnet.{name}", x, w, b,
+              dict(stride=l.stride, pool=l.pool,
+                   pool_stride=l.pool_stride or l.pool, groups=l.groups))
+             for name, x, w, b, l in alex_calls]
+    cases += [
+        ("2/2 pool, 18x18x4 -> 8, no bias", rnd(2, 18, 18, 4),
+         rnd(3, 3, 4, 8, scale=0.3), None,
+         dict(stride=1, pool=2, pool_stride=2, groups=1)),
+        ("3/3 pool, two groups", rnd(2, 16, 16, 8),
+         rnd(3, 3, 4, 16, scale=0.3), rnd(16, scale=0.1),
+         dict(stride=1, pool=3, pool_stride=3, groups=2)),
+        ("3/2 pool, 5 pooled rows (last row block not full), stride 2",
+         rnd(2, 24, 23, 6), rnd(3, 3, 6, 70, scale=0.3), rnd(70, scale=0.1),
+         dict(stride=2, pool=3, pool_stride=2, groups=1))]
+    max_err = 0.0
+    for name, x, w, b, kw in cases:
+        got = fused_conv_pool_raw(x, w, b, **kw)
+        torch.cuda.synchronize()
+        want = fused_conv_pool_plain(x, w, b, **kw)
+        torch.cuda.synchronize()
+        err, tol = fp32_error(got, want)
+        finite = bool(torch.isfinite(got).all())
+        emit("kernel_fcp", case=name, x=list(x.shape), w=list(w.shape),
+             bias=b is not None, **kw, shape=list(got.shape),
+             max_abs_err=err, tol=tol, max_abs_out=float(want.abs().max()),
+             finite=finite)
+        check(finite and err <= tol,
+              f"{name}: K5 disagrees with its plain version (err {err} > "
+              f"tol {tol}) or is not finite")
+        max_err = max(max_err, err)
+    return max_err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -438,10 +632,18 @@ def main() -> int:
                                            partition_waves)
     from repro_torch.core.streaming import (_graph_epilogues,
                                             _graph_kernel_program,
-                                            compile_graph,
+                                            compile_graph, conv2d_direct,
                                             graph_kernel_programs,
                                             plan_graph, run_graph_reference)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.conv_stream import kernel as k6
+    from repro_torch.kernels.conv_stream.kernel import conv2d_stream_raw
+    from repro_torch.kernels.conv_stream.ref import conv2d_stream_plain
+    from repro_torch.kernels.fused_conv_pool import kernel as k5
+    from repro_torch.kernels.fused_conv_pool.kernel import \
+        fused_conv_pool_raw
+    from repro_torch.kernels.fused_conv_pool.ref import \
+        fused_conv_pool_plain
     from repro_torch.kernels.wave_replay import graph as k2
     from repro_torch.kernels.wave_replay import ops
     from repro_torch.kernels.wave_replay.graph import (
@@ -479,7 +681,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     stems = ("wave_replay", "wave_replay_q", "wave_replay_graph",
-             "wave_replay_graph_q")
+             "wave_replay_graph_q", "conv_stream", "fused_conv_pool")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         reports = dict(zip(stems, pool.map(_build.build, stems)))
@@ -653,12 +855,13 @@ def main() -> int:
             return outs
         return serve
 
-    counted = {"K1": ops, "K3": ops_q, "K2": k2, "K4": k4}
+    counted = {"K1": ops, "K3": ops_q, "K2": k2, "K4": k4, "K5": k5,
+               "K6": k6}
 
     def drive(s):
         """One 32-request run with every kernel's count set to 0 just
         before and read just after: (outputs, seconds, batched calls,
-        K1, K3 launches, all four counts)."""
+        K1, K3 launches, every kernel's count)."""
         for k in counted.values():
             k.reset_launch_count()
         calls0 = s.calls
@@ -782,7 +985,97 @@ def main() -> int:
          raw_equal_to_int32_reference=True, equal_to_megakernel=True,
          snr_db_vs_fp32=snr_db(ref, yq_g))
 
-    # 12. timing, per AlexNet layer and chain at batch 8, and the served
+    # 12-13. the streaming conv (K6) and the fused conv + ReLU + pool (K5)
+    # against their plain versions, on the operands the wave and scan
+    # paths hand them
+    env8 = run_graph_reference(alex, weights, imgs[:BATCH])
+    fused_nodes = {n.name for n in alex.conv_nodes()
+                   if n.layer.pool > 1 and n.relu}
+    cs_calls = {"wave": k6_calls(alex, weights, env8, "wave"),
+                "scan": k6_calls(alex, weights, env8, "scan")}
+    check(len(cs_calls["wave"]) == 257 and len(cs_calls["scan"]) == 1142,
+          f"{len(cs_calls['wave'])} / {len(cs_calls['scan'])} K6 calls in "
+          f"a wave / scan forward")
+    err_cs = kernel_cs(dev, gen, cs_calls)
+    fcp_calls = k5_calls(alex, weights, env8)
+    err_fcp = kernel_fcp(dev, gen, fcp_calls)
+
+    # 14-15. the layer executors: serve the same requests in wave and scan
+    # mode with each backend pair; (K6, K5) launches per batched call
+    per_call = {("wave", "xla", "xla"): (0, 0),
+                ("wave", "pallas", "xla"): (257, 0),
+                ("wave", "pallas", "fused"): (256, 3),
+                ("scan", "xla", "xla"): (0, 0),
+                ("scan", "pallas", "xla"): (1142, 0),
+                ("scan", "pallas", "fused"): (1072, 3)}
+    served = {}
+    err_served = {"K5": 0.0, "K6": 0.0}
+    for phase, mode in (("serve_w", "wave"), ("serve_s", "scan")):
+        for cb, pb in (("xla", "xla"), ("pallas", "xla"),
+                       ("pallas", "fused")):
+            s = StreamingSession.for_graph(alex, weights, max_batch=BATCH,
+                                           device=dev, mode=mode,
+                                           conv_backend=cb, pool_backend=pb)
+            s.result(s.submit(imgs[0]))
+            torch.cuda.synchronize()
+            want6, want5 = per_call[(mode, cb, pb)]
+            by_kernel = s.health()["launches_per_forward_by_kernel"]
+            outs, secs, calls_ws, _, _, n_ws = drive(s)
+            check(calls_ws == REQUESTS // BATCH, f"{calls_ws} batched calls")
+            check(by_kernel == {"K5": want5, "K6": want6}
+                  and n_ws["K6"] == want6 * calls_ws
+                  and n_ws["K5"] == want5 * calls_ws
+                  and n_ws["K1"] == n_ws["K2"] == n_ws["K3"]
+                  == n_ws["K4"] == 0,
+                  f"{mode} {cb}/{pb}: {n_ws} launches for {calls_ws} calls "
+                  f"(per call {by_kernel})")
+            y_ws = torch.stack(outs)
+            err_ws, tol = fp32_error(y_ws, ref)
+            check(bool(torch.isfinite(y_ws).all()) and err_ws <= tol,
+                  f"{mode} {cb}/{pb} output off the reference: {err_ws} > "
+                  f"{tol}")
+            extra = {}
+            if (mode, cb, pb) == ("wave", "xla", "xla"):
+                # the script turns cuDNN's TF32 off, so allow it here as
+                # PyTorch does by default: the served output must not move,
+                # while a bare F.conv2d of conv3 (the control) must
+                x3 = env8["conv2"].permute(0, 3, 1, 2)
+                w3 = weights["conv3"][0].permute(3, 2, 0, 1)
+                bare = F.conv2d(x3, w3, padding=1)
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    y_tf = s.run_batch(imgs[:BATCH])
+                    bare_tf = F.conv2d(x3, w3, padding=1)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                err_tf, tol_tf = fp32_error(y_tf, ref[:BATCH])
+                check(err_tf <= tol_tf, f"with TF32 allowed by default the "
+                      f"direct conv path is off: {err_tf} > {tol_tf}")
+                check(torch.equal(y_tf, y_ws[:BATCH]), "allowing TF32 "
+                      "changed the direct conv path's output")
+                bare_err, bare_tol = fp32_error(bare_tf, bare)
+                check(bare_err > bare_tol, f"control: allowing TF32 left a "
+                      f"bare conv3 within fp32 tolerance ({bare_err} <= "
+                      f"{bare_tol}), so the check above shows nothing")
+                extra = dict(max_abs_err_tf32_allowed_by_default=err_tf,
+                             equal_tf32_allowed_by_default=True,
+                             bare_conv3_err_tf32_allowed=bare_err,
+                             bare_conv3_tol=bare_tol)
+            emit(phase, conv_backend=cb, pool_backend=pb, requests=REQUESTS,
+                 batch=BATCH, batched_calls=calls_ws,
+                 k6_launches=n_ws["K6"], k5_launches=n_ws["K5"],
+                 launches_per_call=by_kernel, compiles=s.compile_count,
+                 seconds=secs, max_abs_err=err_ws, tol=tol,
+                 max_abs_err_vs_megakernel=fp32_error(y_ws, y_mega)[0],
+                 **extra)
+            served[(mode, cb, pb)] = (s, n_ws)
+            if cb == "pallas":
+                err_served["K6"] = max(err_served["K6"], err_ws)
+            if pb == "fused":
+                err_served["K5"] = max(err_served["K5"], err_ws)
+
+    # 16. timing, per AlexNet layer and chain at batch 8, and the served
     # rates
     rows = []
     for name, (kp, (x, w, b), (xp, wp, bias, table, rp)) in \
@@ -915,6 +1208,108 @@ def main() -> int:
              profiled_requests=profiled_runs * REQUESTS,
              **profiled(serving(s), profiled_runs), nvidia_smi=smi)
 
+    def replay(calls, fn):
+        def run():
+            for c in calls:
+                fn(*c)
+        return run
+
+    def device_ms(fn, kernel_name, runs=3):
+        """Device time of ``kernel_name`` per ``fn()``, by the profiler."""
+        prof = profiled(lambda: (fn(), torch.cuda.synchronize()), runs)
+        return sum(v for k, v in prof["device_ms_by_kernel"].items()
+                   if kernel_name in k) / runs
+
+    def summed_bound(work):
+        """The bounds of a sequence of calls, each ``(ops, bytes)``,
+        summed: each call's own bound, and the operations' and bytes'
+        times."""
+        total = {"bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+        for o, nb in work:
+            for k, v in bound(o, flops_peak, nb, bw_peak).items():
+                if k in total:
+                    total[k] += v
+        return dict(total, bound_by="operations"
+                    if total["ops_ms"] >= total["bytes_ms"] else "bytes",
+                    gflop=sum(o for o, _ in work) / 1e9,
+                    mbytes=sum(nb for _, nb in work) / 1e6)
+
+    rows_k6 = []
+    for path, calls in (
+            ("wave, conv_backend=pallas, pool_backend=xla",
+             cs_calls["wave"]),
+            ("scan, conv_backend=pallas, pool_backend=fused",
+             [c for c in cs_calls["scan"] if c[0] not in fused_nodes])):
+        args = [(x, w, st) for _, x, w, st in calls]
+        run_k6 = replay(args, lambda x, w, st: conv2d_stream_raw(
+            x, w, stride=st))
+        ms = median_ms(run_k6, groups=5, per_group=3)
+        work = []
+        for x, w, st in args:
+            ho = (x.shape[1] - w.shape[0]) // st + 1
+            wo = (x.shape[2] - w.shape[0]) // st + 1
+            work.append(conv_work(x, w, st, x.shape[0] * ho * wo
+                                  * w.shape[3]))
+        b_k6 = summed_bound(work)
+        rows_k6.append(dict(
+            kernel="K6", path=path, launches_per_forward=len(args), ms=ms,
+            device_ms=device_ms(run_k6, "conv_stream_kernel"),
+            plain_ms=median_ms(replay(args, lambda x, w, st:
+                                      conv2d_stream_plain(x, w, stride=st)),
+                               groups=3, per_group=1, warm=1),
+            library_ms=median_ms(replay(args, lambda x, w, st:
+                                        conv2d_direct(x, w, st, 0)),
+                                 groups=5, per_group=3),
+            **b_k6, achieved_tflops=b_k6["gflop"] / ms))
+        emit("timing", **rows_k6[-1], nvidia_smi=smi)
+
+    k5_args = [(x, w, b, dict(stride=l.stride, pool=l.pool,
+                              pool_stride=l.pool_stride or l.pool,
+                              groups=l.groups))
+               for _, x, w, b, l in fcp_calls]
+    lib_args = [(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(),
+                 b, kw) for x, w, b, kw in k5_args]
+
+    def library_k5(x, w, b, kw):
+        y = F.relu(F.conv2d(x, w, b, stride=kw["stride"],
+                            groups=kw["groups"]))
+        return F.max_pool2d(y, kw["pool"], kw["pool_stride"])
+
+    work = []
+    for _, x, w, b, l in fcp_calls:
+        ps = l.pool_stride or l.pool
+        # the natural (unpadded) input is what has to be read
+        hp = (l.out_h - l.pool) // ps + 1
+        wp_ = (l.out_w - l.pool) // ps + 1
+        work.append((2 * BATCH * l.macs,
+                     4 * (BATCH * l.in_h * l.in_w * l.in_c + w.numel()
+                          + b.numel() + BATCH * hp * wp_ * l.out_c)))
+    b_k5 = summed_bound(work)
+    run_k5 = replay(k5_args, lambda x, w, b, kw: fused_conv_pool_raw(
+        x, w, b, **kw))
+    ms = median_ms(run_k5)
+    row_k5 = dict(
+        kernel="K5", path="wave or scan, pool_backend=fused (conv1, conv2, "
+        "conv5)", launches_per_forward=len(k5_args), ms=ms,
+        device_ms=device_ms(run_k5, "fused_conv_pool_kernel"),
+        plain_ms=median_ms(replay(k5_args, lambda x, w, b, kw:
+                                  fused_conv_pool_plain(x, w, b, **kw)),
+                           groups=5, per_group=2, warm=1),
+        library_ms=median_ms(replay(lib_args, library_k5)), **b_k5,
+        achieved_tflops=b_k5["gflop"] / ms)
+    emit("timing", **row_k5, nvidia_smi=smi)
+
+    for mode, cb, pb in (("wave", "xla", "xla"), ("wave", "pallas", "xla"),
+                         ("wave", "pallas", "fused"),
+                         ("scan", "pallas", "fused")):
+        s, _ = served[(mode, cb, pb)]
+        runs = profiled_runs if mode == "wave" else 2
+        emit("timing", precision="fp32", mode=mode, conv_backend=cb,
+             pool_backend=pb, **served_rate(serving(s), REQUESTS),
+             batch=BATCH, requests_per_run=REQUESTS,
+             profiled_requests=runs * REQUESTS,
+             **profiled(serving(s), runs), nvidia_smi=smi)
+
     def entry(name, source, replaces, launches, err, rs):
         total = {k: sum(r[k] for r in rs)
                  for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -945,7 +1340,18 @@ def main() -> int:
         entry("wave_replay_graph_q_i8",
               "src/repro_torch/csrc/wave_replay_graph_q.cu",
               "src/repro/kernels/wave_replay_q/graph.py:180", n_gq["K4"],
-              0, rows_gq)]}))
+              0, rows_gq),
+        # launches: the wave path with a fused pool (K5) and with the
+        # direct pool (K6, whose ms row is that path's forward)
+        entry("fused_conv_pool_f32",
+              "src/repro_torch/csrc/fused_conv_pool.cu",
+              "src/repro/kernels/fused_conv_pool/kernel.py:24",
+              served[("wave", "pallas", "fused")][1]["K5"],
+              max(err_fcp, err_served["K5"]), [row_k5]),
+        entry("conv_stream_f32", "src/repro_torch/csrc/conv_stream.cu",
+              "src/repro/kernels/conv_stream/kernel.py:29",
+              served[("wave", "pallas", "xla")][1]["K6"],
+              max(err_cs, err_served["K6"]), rows_k6[:1])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -66,30 +66,38 @@ def reset_launch_count() -> None:
     launches = plain_calls = 0
 
 
-@functools.lru_cache(maxsize=256)
-def cta_block(kp: KernelProgram) -> "tuple[int, int]":
-    """(rows, cols) of the output block one CTA writes (pooled when the
-    program fuses its pool): the fewest CTAs per tile whose conv rows,
-    ``(rows - 1) * ps + pool`` by ``(cols - 1) * ps + pool``, fit the
-    kernel's ``CTA_PIXELS``; ties go to the smaller conv rectangle.
-    Cached per program: the search costs as much host time as a small
-    layer's kernel, and every launch asks for it."""
+@functools.lru_cache(maxsize=1024)
+def cta_rect(blk_h: int, blk_w: int, pool: int,
+             ps: int) -> "Optional[tuple[int, int]]":
+    """(rows, cols) of the (pooled) output block one CTA writes, for a
+    tile block of ``blk_h`` x ``blk_w``: the fewest CTAs per tile whose
+    conv rows, ``(rows - 1) * ps + pool`` by ``(cols - 1) * ps + pool``,
+    fit the kernel's ``CTA_PIXELS``; ties go to the smaller conv
+    rectangle. ``None`` when a single pool window does not fit. Cached:
+    the search costs as much host time as a small layer's kernel, and
+    every launch asks for it."""
     best = None
-    for ph in range(1, kp.blk_h + 1):
-        ch = (ph - 1) * kp.pool_stride + kp.pool
-        for pw in range(1, kp.blk_w + 1):
-            cw = (pw - 1) * kp.pool_stride + kp.pool
+    for ph in range(1, blk_h + 1):
+        ch = (ph - 1) * ps + pool
+        for pw in range(1, blk_w + 1):
+            cw = (pw - 1) * ps + pool
             if ch * cw > CTA_PIXELS:
                 break
-            key = (_ceil_div(kp.blk_h, ph) * _ceil_div(kp.blk_w, pw),
-                   ch * cw)
+            key = (_ceil_div(blk_h, ph) * _ceil_div(blk_w, pw), ch * cw)
             if best is None or key < best[0]:
                 best = (key, (ph, pw))
-    if best is None:
+    return None if best is None else best[1]
+
+
+def cta_block(kp: KernelProgram) -> "tuple[int, int]":
+    """``cta_rect`` of a program's tile block (pooled when the program
+    fuses its pool)."""
+    rect = cta_rect(kp.blk_h, kp.blk_w, kp.pool, kp.pool_stride)
+    if rect is None:
         raise LoweringError(
             f"{kp.wave.program.layer.name}: pool {kp.pool} window exceeds "
             f"the kernel's {CTA_PIXELS}-pixel CTA")
-    return best[1]
+    return rect
 
 
 def launch_geometry(kp: KernelProgram, batch: int) -> Geom:
@@ -112,6 +120,81 @@ def launch_geometry(kp: KernelProgram, batch: int) -> Geom:
         cta_cw=(pw - 1) * kp.pool_stride + kp.pool,
         blocks_h=_ceil_div(kp.blk_h, ph), blocks_w=_ceil_div(kp.blk_w, pw),
         ch_tiles=_ceil_div(opg, CTA_CHANNELS))
+
+
+@functools.lru_cache(maxsize=1024)
+def one_step_geometry(*, batch: int, dims: "tuple[int, int, int]",
+                      k: int, stride: int, w_in: int, w_stride: int,
+                      fan: int, groups: int, opg: int, out_h: int,
+                      out_w: int, pool: int = 1, ps: int = 1,
+                      relu: bool = False, name: str = "conv") -> Geom:
+    """Launch parameters of the dense gemm body for a conv replayed as
+    ONE tile with ONE chain step (``csrc/one_step_conv.cuh``): the
+    schedule that kernels K5 (fused_conv_pool.cu) and K6 (conv_stream.cu)
+    give it. ``dims`` is (rows, cols, channels) of the NHWC tensor the
+    input is read from, ``w_in`` and ``w_stride`` the weights' fan and
+    channel strides, and ``out_h`` x ``out_w`` the (pooled) output; every
+    output row and column is valid. Cached, since the executors repeat a
+    few shapes hundreds of times per forward: the caller must not modify
+    the returned ``Geom``."""
+    rect = cta_rect(out_h, out_w, pool, ps)
+    if rect is None:
+        raise LoweringError(f"{name}: pool {pool} window exceeds the "
+                            f"kernel's {CTA_PIXELS}-pixel CTA")
+    ph, pw = rect
+    ch_tiles = _ceil_div(opg, CTA_CHANNELS)
+    if batch > 65535 or groups * ch_tiles > 65535:
+        raise ValueError(f"{name}: batch {batch} or {groups * ch_tiles} "
+                         f"channel tiles exceed the kernel's 65535-block "
+                         f"grid axes")
+    pad_h, pad_w, in_c = dims
+    return Geom(
+        batch=batch, pad_h=pad_h, pad_w=pad_w, in_c=in_c, k=k,
+        stride=stride, w_in=w_in, out_c=w_stride, fan=fan, groups=groups,
+        opg=opg, n_chain=1, n_tiles=1, blk_h=out_h, blk_w=out_w,
+        acc_h=(out_h - 1) * ps + pool, acc_w=(out_w - 1) * ps + pool,
+        out_h_pad=out_h, out_w_pad=out_w, pool=pool, ps=ps, relu=int(relu),
+        residual=0, depthwise=0, cta_ph=ph, cta_pw=pw,
+        cta_ch=(ph - 1) * ps + pool, cta_cw=(pw - 1) * ps + pool,
+        blocks_h=_ceil_div(out_h, ph), blocks_w=_ceil_div(out_w, pw),
+        ch_tiles=ch_tiles)
+
+
+_ZERO_BIAS: "dict[torch.device, torch.Tensor]" = {}
+
+
+def zero_bias(n: int, device: torch.device) -> torch.Tensor:
+    """A cached device buffer of at least ``n`` zeros, for a one-step
+    launch without a bias (the gemm body's epilogue adds one)."""
+    z = _ZERO_BIAS.get(device)
+    if z is None or z.numel() < n:
+        z = _ZERO_BIAS[device] = torch.zeros(max(n, 1024), device=device)
+    return z
+
+
+@functools.lru_cache(maxsize=None)
+def _one_step_entry(stem: str):
+    fn = getattr(_build.library(stem), f"{stem}_f32")
+    fn.argtypes = [ctypes.c_void_p] * 6     # &geom, x, w, bias, out, stream
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_one_step(stem: str, geom: Geom, x: torch.Tensor,
+                    w: torch.Tensor, bias: torch.Tensor,
+                    out: torch.Tensor) -> None:
+    """Launch ``<stem>_f32`` of ``csrc/<stem>.cu`` (K5 or K6: the
+    one-step conv) once on the current stream of ``x``'s device; raises
+    ``KernelLaunchError`` when the CUDA runtime refuses the launch. The
+    caller counts the launch."""
+    fn = _one_step_entry(stem)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(ctypes.addressof(geom), x.data_ptr(), w.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise KernelLaunchError(f"{stem}_f32 launch failed with cudaError "
+                                f"{err}")
 
 
 def _check(kp: KernelProgram, x, w, b, table, residual) -> None:

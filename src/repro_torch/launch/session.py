@@ -1,15 +1,24 @@
 """Streaming sessions: batched multi-image CNN serving on the card.
 
-The counterpart of ``repro/launch/session.py`` for ``mode="megakernel"``
-(kernel K1 at fp32, K3 at int8) and ``mode="graphkernel"`` (K2 at fp32,
-K4 at int8). The session takes a ``NetworkGraph`` (or a plain layer
-sequence, wrapped into its chain graph), plans and lowers every conv
-node once at construction, and serves each request batch with ONE
-wave-replay kernel launch per conv node (megakernel) or per fused chain
-of conv nodes (graphkernel; a single-node chain takes the per-layer
-kernel). Per batch shape it builds the forward and uploads the operand
-tables to the device once (``compile_count``), then replays them for
-every call.
+The counterpart of ``repro/launch/session.py``. The session takes a
+``NetworkGraph`` (or a plain layer sequence, wrapped into its chain
+graph), plans and lowers every conv node once at construction, and
+serves each request batch with one forward of the chosen executor mode:
+
+  * ``mode="megakernel"`` (the port's default): ONE wave-replay kernel
+    launch per conv node (K1 at fp32, K3 at int8);
+  * ``mode="graphkernel"``: ONE launch per fused chain of conv nodes (K2
+    at fp32, K4 at int8; a single-node chain takes the per-layer kernel);
+  * ``mode="wave"`` (the reference's default) and ``mode="scan"``: the
+    layer executors at fp32, with ``conv_backend="pallas"`` running every
+    single-group wave or step conv through the streaming conv kernel K6,
+    and ``pool_backend="fused"`` every pooled, ReLU'd conv node through
+    the fused conv + ReLU + pool kernel K5 (one launch per node, its conv
+    groups inside). Grouped wave dispatches and scan steps run the direct
+    grouped conv, as the reference runs them outside its kernels.
+
+Per batch shape the session builds the forward and uploads the operand
+tables once (``compile_count``), then replays them for every call.
 
   * ``run_batch(x)`` — synchronous batched inference.
   * ``submit(img)`` / ``result(ticket)`` — micro-batching queue: single
@@ -31,11 +40,14 @@ from repro_torch.core.decomposition import ConvLayer, plan_decomposition
 from repro_torch.core.graph import (INPUT, NetworkGraph, chain_graph,
                                     conv_keyed)
 from repro_torch.core.schedule import TileProgram
-from repro_torch.core.streaming import (check_mode, compile_graph,
+from repro_torch.core.streaming import (_partition_waves_cached,
+                                        check_mode, compile_graph,
                                         graph_chain_programs,
                                         graph_forward_fn, graph_operands,
                                         plan_graph)
 from repro_torch.core.quantization import quantize_int8_sym
+from repro_torch.kernels.conv_stream import kernel as k6
+from repro_torch.kernels.fused_conv_pool import kernel as k5
 from repro_torch.kernels.wave_replay import graph as k2
 from repro_torch.kernels.wave_replay import kernel as k1
 from repro_torch.kernels.wave_replay_q import graph as k4
@@ -62,13 +74,29 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _kernel_runs() -> Dict[str, int]:
+    """K5 and K6 runs so far: CUDA launches plus plain-version runs."""
+    return {"K5": k5.launch_count() + k5.plain_count(),
+            "K6": k6.launch_count() + k6.plain_count()}
+
+
 class StreamingSession:
     """One (graph, plan-set) serving session, one forward per batch shape.
 
-    ``mode`` is ``"megakernel"`` or ``"graphkernel"``; the reference's
-    other modes, ``mode="auto"``, ``fallback``, ``guard`` and ``tracer``
-    raise ``NotImplementedError`` naming the ROADMAP item that ports
-    them.
+    ``mode`` is ``"megakernel"`` (default), ``"graphkernel"``,
+    ``"wave"`` or ``"scan"`` (alias ``"jit"``); the reference defaults to
+    ``"wave"``, the port to the mode whose every conv runs a hand-written
+    kernel. ``mode="interpret"`` has no compiled forward and raises
+    ``ValueError``, as in the reference. ``mode="auto"``, ``fallback``,
+    ``guard`` and ``tracer`` raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them.
+
+    In wave and scan mode, ``conv_fn`` (a callable ``(x_tile, w_tile) ->
+    y_tile``) or ``conv_backend`` (``"xla"``: the direct conv;
+    ``"pallas"``: kernel K6) is the per-step conv, and
+    ``pool_backend="fused"`` serves pooled, ReLU'd conv nodes through
+    kernel K5. The megakernel modes ignore all three, as the reference
+    does.
 
     ``precision="int8"`` serves the fixed-point datapath: pass a
     calibrated ``qnet``, a ``QuantizedGraph`` (``quant/calibrate.py``) or,
@@ -90,7 +118,9 @@ class StreamingSession:
                  max_pending: Optional[int] = None,
                  validate_inputs: bool = True,
                  clock: Callable[[], float] = time.monotonic,
-                 fallback=None, guard=None, tracer=None):
+                 fallback=None, guard=None, tracer=None,
+                 conv_fn: Optional[Callable] = None,
+                 conv_backend: str = "xla", pool_backend: str = "xla"):
         for name, value in (("fallback", fallback), ("guard", guard),
                             ("tracer", tracer)):
             if value is not None and value is not False:
@@ -101,7 +131,18 @@ class StreamingSession:
             raise NotImplementedError(
                 "mode='auto' is not ported yet: ROADMAP queue 1 item 9 "
                 "(autotuner)")
-        check_mode(mode, precision)
+        if check_mode(mode, precision) == "interpret":
+            raise ValueError("interpret mode has no operand tables: a "
+                             "session serves a compiled mode")
+        if conv_backend not in ("xla", "pallas"):
+            raise ValueError(f"unknown conv backend {conv_backend!r} "
+                             f"(expected xla | pallas)")
+        if pool_backend not in ("xla", "fused"):
+            raise ValueError(f"unknown pool backend {pool_backend!r} "
+                             f"(expected xla | fused)")
+        self.conv_fn = conv_fn
+        self.conv_backend = conv_backend
+        self.pool_backend = pool_backend
         if not isinstance(graph, NetworkGraph):
             graph = chain_graph(tuple(graph))
         self.graph = graph
@@ -156,6 +197,9 @@ class StreamingSession:
         self._expired: set = set()
         self._next_ticket = 0
         self._chain_lowering = None
+        # K5/K6 runs (launches or plain-version runs) of the last forward
+        # in wave and scan mode, counted as they happen
+        self._last_runs: Optional[Dict[str, int]] = None
 
     @classmethod
     def for_network(cls, layers: Sequence[ConvLayer], weights,
@@ -188,7 +232,10 @@ class StreamingSession:
                                    precision=self.precision,
                                    qgraph=self.qnet,
                                    dequantize=self.dequantize,
-                                   batch=self.max_batch)
+                                   batch=self.max_batch,
+                                   conv_fn=self.conv_fn,
+                                   conv_backend=self.conv_backend,
+                                   pool_backend=self.pool_backend)
             ops = graph_operands(self.graph, self._progs, self.mode,
                                  precision=self.precision,
                                  batch=self.max_batch, device=self.device)
@@ -230,7 +277,13 @@ class StreamingSession:
             x = x.to(torch.float32)
         fwd, ops = self._executable(self._exec_key(x.shape, x.dtype))
         self.calls += 1
-        return fwd(x, self.weights, ops)
+        if self.mode not in ("wave", "scan"):
+            return fwd(x, self.weights, ops)
+        before = _kernel_runs()
+        y = fwd(x, self.weights, ops)
+        self._last_runs = {k: n - before[k]
+                           for k, n in _kernel_runs().items()}
+        return y
 
     def _is_codes(self, x: torch.Tensor) -> bool:
         return self.precision == "int8" and x.dtype == torch.int8
@@ -342,28 +395,48 @@ class StreamingSession:
                 batch=self.max_batch)
         return self._chain_lowering
 
+    def kernel_launches_per_forward(self) -> Optional[Dict[str, int]]:
+        """Launches of each hand-written kernel in one forward: from the
+        lowered programs in megakernel mode (K1/K3 per conv node) and
+        graphkernel mode (K2/K4 per multi-node chain, K1/K3 per
+        single-node chain); in wave and scan mode the K5 and K6 runs
+        counted over the last forward (``None`` before the first), so
+        they are what the executors dispatched."""
+        per_layer, chain = (("K3", "K4") if self.precision == "int8"
+                            else ("K1", "K2"))
+        if self.mode == "megakernel":
+            return {per_layer: len(self.programs)}
+        lowered = self.chains()
+        if lowered is not None:
+            chains, _, gkps = lowered
+            return {chain: len(gkps), per_layer: len(chains) - len(gkps)}
+        return None if self._last_runs is None else dict(self._last_runs)
+
     def health(self) -> dict:
-        """Machine-readable serving health: mode, device, the executor of
-        each conv node and the launches of one forward (one per conv node
-        in megakernel mode, one per fused chain in graphkernel mode), and
-        the session's counters."""
+        """Machine-readable serving health: mode, backends, device, the
+        executor of each conv node, the launches of each hand-written
+        kernel in one forward and their total (``kernel_launches_per_
+        forward``), and the session's counters."""
         lowered = self.chains()
         if lowered is None:
             node_modes = {name: self.mode for name in self._progs}
-            per_forward = len(self.programs)
         else:
             chains, _, gkps = lowered
             node_modes = {name: ("graphkernel" if c.convs[0] in gkps
                                  else "megakernel")
                           for c in chains for name in c.convs}
-            per_forward = len(chains)
+        by_kernel = self.kernel_launches_per_forward()
         return {
             "graph": self.graph.name,
             "mode": self.mode,
             "precision": self.precision,
+            "conv_backend": self.conv_backend,
+            "pool_backend": self.pool_backend,
             "device": str(self.device),
             "node_modes": node_modes,
-            "launches_per_forward": per_forward,
+            "launches_per_forward": (None if by_kernel is None
+                                     else sum(by_kernel.values())),
+            "launches_per_forward_by_kernel": by_kernel,
             "counters": {
                 "shed": self.shed,
                 "deadline_expired": self.deadline_expired,
@@ -377,26 +450,39 @@ class StreamingSession:
                 "plain_calls_graph": k2.plain_count(),
                 "kernel_launches_graph_q": k4.launch_count(),
                 "plain_calls_graph_q": k4.plain_count(),
+                "kernel_launches_fused_conv_pool": k5.launch_count(),
+                "plain_calls_fused_conv_pool": k5.plain_count(),
+                "kernel_launches_conv_stream": k6.launch_count(),
+                "plain_calls_conv_stream": k6.plain_count(),
             },
             "pending": len(self._pending),
             "executables": len(self._executables),
         }
 
     def describe(self) -> str:
+        backends = ("" if self.mode in ("megakernel", "graphkernel")
+                    else f"conv_backend={self.conv_backend}, "
+                         f"pool_backend={self.pool_backend}, "
+                         f"launches per forward "
+                         f"{self.kernel_launches_per_forward()}, ")
         lines = [f"StreamingSession[{self.graph.name}]: "
                  f"{len(self.graph.nodes)} nodes "
                  f"({len(self.programs)} conv), "
                  f"mode={self.mode}, precision={self.precision}, "
-                 f"device={self.device}, max_batch={self.max_batch}, "
+                 f"{backends}device={self.device}, "
+                 f"max_batch={self.max_batch}, "
                  f"executables={len(self._executables)}, "
                  f"compiles={self.compile_count}, calls={self.calls}"]
         lowered = self.chains()
-        if lowered is None:
-            lines += ["  " + p.describe() for p in self.programs]
-        else:
+        if lowered is not None:
             chains, kprogs, gkps = lowered
             lines += ["  " + (gkps[c.convs[0]].describe()
                               if c.convs[0] in gkps
                               else kprogs[c.convs[0]].describe())
                       for c in chains]
+        elif self.mode == "wave":
+            lines += ["  " + _partition_waves_cached(p).describe()
+                      for p in self.programs]
+        else:
+            lines += ["  " + p.describe() for p in self.programs]
         return "\n".join(lines)

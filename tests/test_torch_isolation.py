@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 loads neither JAX nor any module of the ``repro`` package, and no source
-file of the port imports them."""
+file of the port, nor ``chip_smoke.py`` (which drives the port on the
+card), imports them."""
 import os
 import re
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 pytest.importorskip("torch")
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
 
 
@@ -50,3 +52,22 @@ def test_no_port_source_imports_jax_or_the_reference():
     assert pat.search("from repro.core import x")
     assert pat.search("import jax.numpy as jnp")
     assert not pat.search("from repro_torch.core import x")
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
+                     r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "repro_torch" in src
+    assert not pat.search(src)
+    # importing it (its imports of the port run inside main) loads none
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -147,8 +147,9 @@ def test_no_device_means_cuda_and_raises_without_a_card(monkeypatch):
     assert tsession.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(mode="wave"), dict(mode="scan"),
-                                dict(mode="auto"), dict(mode="interpret"),
+@pytest.mark.parametrize("kw", [dict(mode="wave", fallback=True),
+                                dict(mode="scan", guard=True),
+                                dict(mode="auto"), dict(tracer=True),
                                 dict(fallback=True), dict(guard=True)])
 def test_unported_options_name_their_roadmap_item(kw):
     tg, tw = tiny()
