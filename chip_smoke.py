@@ -64,15 +64,40 @@ Phases, each printing one JSON line:
     8 (stride 4; pad 2 and two groups; pad 1 and two groups; 3/2 pools),
     a 2/2 pool, a 3/3 pool with two groups, and pooled rows that do not
     fill the plain version's last row block.
-14. ``serve_w``: the same 32 requests through the session in wave mode
+14. ``kernel_mp``: the streaming max-pool kernel (K7) through its public
+    op ``maxpool_stream``, one launch per call (every kernel's count set
+    to 0 before each call and read after), equal (``torch.equal``, a NaN
+    matching a NaN) to its plain version on the same CUDA tensors and to
+    ``maxpool_ref`` wherever the reference's -inf start and the kernel's
+    -3e38 agree: AlexNet's three 3/2 pools at batch 8, the reference
+    test's five cases, a ragged 2/2 pool, stride > pool, bf16, and an
+    input holding NaN and -inf.
+15. ``kernel_qmm``: the int8 matmul kernel (K8) through ``quant_matmul``,
+    one launch per call, ``torch.equal`` to ``quant_matmul_ref`` and its
+    plain version, and at unit scales to the float64 accumulator: AlexNet's
+    int8 gemms at batch 8 (conv3's and conv2's im2col, the head's two
+    layers), the reference test's four blockings, M 1, qmin/qmax at K
+    512; then ``quantize_activations``/``quantize_weights`` on the card
+    equal them on the CPU at exact halves of the scale.
+16. ``kernel_fa``: the flash-attention kernel (K9) through
+    ``flash_attention``, one launch per call, against its plain version
+    and ``attention_ref`` (TF32 off) to 2e-5 (fp32) and 2e-2 (bf16), and
+    a bf16 result besides to one bf16 ULP of both and half a ULP of the
+    fp32 attention of its inputs: a Qwen3-1.7B layer at prefill (H 16,
+    KV 8, D 128, S = T = 4096, causal) in fp32 and bf16, a Gemma3-4B
+    local layer at the repo config's widths (H 8, KV 4, window 1024, D
+    320 = d_model / n_heads; the published head_dim is 256), the
+    reference test's five cases and its dtype case, S not divisible by
+    the block, and T != S without causal.
+17. ``serve_w``: the same 32 requests through the session in wave mode
     with (``conv_backend``, ``pool_backend``) = (xla, xla), (pallas,
     xla), (pallas, fused): 0 / 257 / 256 K6 and 0 / 0 / 3 K5 launches
     per batched call, no other kernel; outputs within ``FP32_TOL`` of the
     direct reference, the (xla, xla) one also with cuDNN's TF32 allowed
     by the process (the direct conv turns it off for itself).
-15. ``serve_s``: the same in scan mode: 0 / 1142 / 1072 K6 and 0 / 0 / 3
-    K5 launches per call.
-16. ``timing``: per AlexNet layer at batch 8, each per-layer kernel's
+18. ``serve_s``: the same in scan mode: 0 / 1142 / 1072 K6 and 0 / 0 / 3
+    K5 launches per call. No serving run launches K7, K8 or K9.
+19. ``timing``: per AlexNet layer at batch 8, each per-layer kernel's
     median time, its plain version's, a library yardstick the port never
     calls (``library_ms``: cuDNN's ``conv2d + bias + ReLU + max_pool2d``
     for K1, ``torch._int_mm`` on the layer's im2col, per group, gemm
@@ -82,11 +107,15 @@ Phases, each printing one JSON line:
     scan path's 1072, replayed; cuDNN's conv per call as the yardstick)
     and K5 (conv1, conv2, conv5; cuDNN's conv + bias + ReLU +
     ``max_pool2d``), with the profiler's device time beside the CUDA
-    events'; for each precision and mode, and the wave and scan
-    configurations, the served images per second over windows of at
-    least a second and, from ``torch.profiler`` over served runs, the
-    device time by kernel, the device's idle share and the host time by
-    operation.
+    events'; per public-op call the same for K7 (AlexNet's pools;
+    ``F.max_pool2d``), K8 (AlexNet's gemms; ``torch._int_mm`` and the two
+    scale multiplies) and K9 (the Qwen3 and Gemma3 layers;
+    ``F.scaled_dot_product_attention``), each with its launches per AlexNet
+    forward on the serving paths (0); for each precision and mode, and the
+    wave and scan configurations, the served images per second over
+    windows of at least a second and, from ``torch.profiler`` over served
+    runs, the device time by kernel, the device's idle share and the host
+    time by operation.
 
 Then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits nonzero before the
@@ -106,12 +135,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 BATCH = 8
 REQUESTS = 32
+PREFILL = 4096          # S = T of the attention layers of phase kernel_fa
 
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): fp32
-# outside the tensor cores, dense int8 on the tensor cores, and memory
-# bandwidth.
+# outside the tensor cores, dense bf16 and int8 on the tensor cores, and
+# memory bandwidth.
 H100_SXM = "H100 80GB HBM3"
 FP32_PEAK_FLOPS = 67.0e12
+BF16_PEAK_FLOPS = 989.0e12
 INT8_PEAK_OPS = 1979.0e12
 MEM_BYTES_PER_S = 3.35e12
 SERVE_WINDOW_S = 1.0    # each served-rate window lasts at least this long
@@ -612,6 +643,349 @@ def kernel_fcp(dev, gen, alex_calls) -> float:
     return max_err
 
 
+def one_launch_each(counted, own: str, calls) -> "tuple[list, int]":
+    """Run each thunk of ``calls`` (a public-op call) with every kernel's
+    count set to 0 just before and read just after; fail unless it
+    launched kernel ``own`` once and nothing else. Returns the outputs
+    and ``own``'s launches."""
+    outs, launched = [], 0
+    for call in calls:
+        for k in counted.values():
+            k.reset_launch_count()
+        outs.append(call())
+        n = {name: k.launch_count() for name, k in counted.items()}
+        check(n[own] == 1 and sum(n.values()) == 1,
+              f"one {own} public-op call launched {n}")
+        launched += n[own]
+    return outs, launched
+
+
+def same(a, b) -> bool:
+    """Equal dtype, shape and values, a NaN matching a NaN."""
+    import torch
+    nan_a, nan_b = a.isnan(), b.isnan()
+    return a.dtype == b.dtype and torch.equal(nan_a, nan_b) and torch.equal(
+        torch.where(nan_a, 0, a), torch.where(nan_b, 0, b))
+
+
+def kernel_mp(dev, gen, counted) -> "tuple[int, list]":
+    """K7 through its public op, once per call, against its plain version
+    on the same CUDA tensors and against ``maxpool_ref`` (equal where the
+    reference's -inf start and the kernel's -3e38 agree): AlexNet's three
+    pools at batch 8 (the path: its launches are returned), the reference
+    test's five cases at ``row_block=4``, a ragged 2/2 pool, a pool with
+    stride > pool, bf16, and an input holding NaN and -inf. Returns the
+    path's launches and its (name, x, kwargs)."""
+    import torch
+
+    from repro_torch.kernels.maxpool_stream.ops import maxpool_stream
+    from repro_torch.kernels.maxpool_stream.ref import (
+        NEG, maxpool_ref, maxpool_stream_plain)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    path = [(f"alexnet.{n} pool 3/2", rnd(BATCH, h, h, c),
+             dict(pool=3, stride=2))
+            for n, h, c in (("conv1", 55, 96), ("conv2", 27, 256),
+                            ("conv5", 13, 256))]
+    odd = rnd(2, 13, 13, 40)
+    odd[0, 2, 3, 5] = float("nan")
+    odd[1, :3, :3, 7] = float("-inf")          # a whole window
+    odd[1, 6, 6, 9] = float("-inf")            # one tap of a window
+    cases = [(f"reference test {h}x{w}x{c} {p}/{ps}", rnd(2, h, w, c),
+              dict(pool=p, stride=ps, row_block=4))
+             for h, w, c, p, ps in ((8, 8, 4, 2, 2), (13, 13, 8, 3, 2),
+                                    (27, 27, 16, 3, 3), (14, 10, 4, 2, 2),
+                                    (55, 55, 8, 3, 2))]
+    cases += [
+        ("2/2, ragged W 11, C 40", rnd(2, 9, 11, 40), dict(pool=2)),
+        ("2/3 (stride > pool)", rnd(2, 17, 14, 6), dict(pool=2, stride=3)),
+        ("bf16 alexnet.conv1 pool 3/2", rnd(BATCH, 55, 55, 96,
+                                      dtype=torch.bfloat16),
+         dict(pool=3, stride=2)),
+        ("NaN and -inf, 3/2", odd, dict(pool=3, stride=2))]
+    outs, launched = one_launch_each(
+        counted, "K7", [lambda x=x, kw=kw: maxpool_stream(x, **kw)
+                        for _, x, kw in path])
+    more, _ = one_launch_each(
+        counted, "K7", [lambda x=x, kw=kw: maxpool_stream(x, **kw)
+                        for _, x, kw in cases])
+    torch.cuda.synchronize()
+    for (name, x, kw), got in zip(path + cases, outs + more):
+        want = maxpool_stream_plain(x, **kw)
+        ref = maxpool_ref(x, pool=kw["pool"], stride=kw.get("stride", 0))
+        below = ref.float() < NEG
+        from_ref = torch.where(below, torch.tensor(NEG).to(ref.dtype), ref)
+        equal, equal_ref = same(got, want), same(got, from_ref)
+        emit("kernel_mp", case=name, x=list(x.shape), dtype=str(x.dtype),
+             **kw, shape=list(got.shape), equal=equal,
+             equal_to_maxpool_ref_above_neg=equal_ref,
+             nan_out=int(got.isnan().sum()), below_neg_in_ref=int(
+                 below.sum()))
+        check(equal and equal_ref, f"{name}: K7 differs from its plain "
+              f"version or from maxpool_ref")
+        if name.startswith("NaN"):
+            check(bool(got.isnan().any()) and bool(below.any()),
+                  f"{name}: the case shows neither NaN nor -inf")
+    return launched, path
+
+
+def kernel_qmm(dev, gen, counted) -> "tuple[int, list]":
+    """K8 through its public op, once per call, ``torch.equal`` to
+    ``quant_matmul_ref`` and to its plain version on the same CUDA
+    tensors, and at unit scales (its output then the accumulator itself)
+    to the float64 oracle ``quant_matmul_acc_ref``: AlexNet's int8 gemms
+    at batch 8 (conv3's im2col, conv2's per group, the head's two layers,
+    quantized on the card from fp32; the path: its launches are
+    returned), the reference test's four blockings, M = 1 with K not a
+    multiple of 4, and qmin/qmax operands at K 512. Then the quantizers on
+    the card equal them on the CPU at exact halves of the scale. Returns
+    the path's launches and its (name, xq, wq, sx, sw)."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul.ops import (quant_matmul,
+                                                      quantize_activations,
+                                                      quantize_weights)
+    from repro_torch.kernels.quant_matmul.ref import (quant_matmul_acc_ref,
+                                                      quant_matmul_plain,
+                                                      quant_matmul_ref)
+
+    def quantized(M, K, N):
+        x = torch.randn((M, K), generator=gen).to(dev)
+        w = (torch.randn((K, N), generator=gen) * 0.05).to(dev)
+        return (*quantize_activations(x), *quantize_weights(w))
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    def scales(n):
+        return (torch.rand((n,), generator=gen) * 0.019 + 1e-3).to(dev)
+
+    path = []
+    for name, (M, K, N) in (
+            ("alexnet.conv3 im2col", (BATCH * 13 * 13, 3 * 3 * 256, 384)),
+            ("alexnet.conv2 im2col, one group",
+             (BATCH * 27 * 27, 5 * 5 * 48, 128)),
+            ("alexnet head fc1", (BATCH, 6 * 6 * 256, 256)),
+            ("alexnet head fc2", (BATCH, 256, 1000))):
+        xq, sx, wq, sw = quantized(M, K, N)
+        path.append((name, xq, wq, sx, sw, {}))
+    cases = [(f"reference test {M}x{K}x{N} blocks {bm}/{bn}/{bk}",
+              i8(M, K), i8(K, N), 0.02, scales(N),
+              dict(block_m=bm, block_n=bn, block_k=bk))
+             for M, K, N, bm, bn, bk in ((64, 64, 64, 32, 32, 32),
+                                         (100, 70, 50, 32, 16, 32),
+                                         (16, 256, 8, 16, 8, 64),
+                                         (1, 64, 128, 8, 64, 32))]
+    cases.append(("M 1, K 37, N 19", i8(1, 37), i8(37, 19), 0.02,
+                  scales(19), {}))
+    cases.append(("qmin/qmax, K 512", torch.full((32, 512), -128,
+                                                 dtype=torch.int8,
+                                                 device=dev),
+                  torch.cat([torch.full((512, 8), -128, dtype=torch.int8),
+                             torch.full((512, 8), 127, dtype=torch.int8)],
+                            1).to(dev), 1.0,
+                  torch.ones((16,), device=dev), {}))
+    calls = [lambda c=c: quant_matmul(c[1], c[2], c[3], c[4], **c[5])
+             for c in path + cases]
+    unit = [lambda c=c: quant_matmul(c[1], c[2], 1.0, torch.ones(
+        (c[2].shape[1],), device=dev), **c[5]) for c in path + cases]
+    outs, launched = one_launch_each(counted, "K8", calls[:len(path)])
+    more, _ = one_launch_each(counted, "K8", calls[len(path):] + unit)
+    torch.cuda.synchronize()
+    outs += more
+    for i, (name, xq, wq, sx, sw, kw) in enumerate(path + cases):
+        got, acc_f = outs[i], outs[len(path) + len(cases) + i]
+        acc = quant_matmul_acc_ref(xq, wq)
+        equal_ref = torch.equal(got, quant_matmul_ref(xq, wq, sx, sw))
+        equal_plain = torch.equal(got, quant_matmul_plain(xq, wq, sx, sw,
+                                                          **kw))
+        max_acc = int(acc.abs().max())
+        equal_acc = torch.equal(acc_f, acc.float())
+        emit("kernel_qmm", case=name, m_k_n=[xq.shape[0], xq.shape[1],
+                                              wq.shape[1]], **kw,
+             equal_to_quant_matmul_ref=equal_ref,
+             equal_to_plain=equal_plain, accumulator_equal=equal_acc,
+             max_abs_acc=max_acc, acc_exact_in_fp32=max_acc < 2 ** 24)
+        check(got.dtype == torch.float32 and equal_ref and equal_plain
+              and equal_acc, f"{name}: K8 differs from quant_matmul_ref, "
+              f"its plain version or the float64 accumulator")
+
+    # the quantizers at exact halves of their derived scales
+    def ties(amax):
+        scale = torch.tensor(amax) / torch.tensor(127.0)
+        k = torch.arange(-127, 127, dtype=torch.float32)
+        return torch.cat([(k + 0.5) * scale, torch.tensor([amax])])
+
+    x = ties(2.9137).repeat(64)
+    w = torch.stack([ties(a) for a in (0.0371, 1.5, 7.25e-3)], 1)
+    q_cpu, s_cpu = quantize_activations(x)
+    q_card, s_card = quantize_activations(x.to(dev))
+    wq_cpu, sw_cpu = quantize_weights(w)
+    wq_card, sw_card = quantize_weights(w.to(dev))
+    equal = (torch.equal(q_card.cpu(), q_cpu)
+             and torch.equal(s_card.cpu(), s_cpu)
+             and torch.equal(wq_card.cpu(), wq_cpu)
+             and torch.equal(sw_card.cpu(), sw_cpu))
+    emit("kernel_qmm", case="quantizers at exact halves, card vs CPU",
+         values=x.numel() + w.numel(), equal=equal)
+    check(equal, "quantize_activations/quantize_weights on the card differ "
+          "from the CPU's")
+    return launched, [c[:5] for c in path]
+
+
+FA_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+# fp32 rounding between two orders of summation at S = T = 4096 reaches
+# about 1e-6 (K9 against attention_ref in fp32); the bf16 checks allow
+# this much on top of their ULP bounds.
+FA_FP32_SLACK = 4e-6
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place of each value of the fp32 tensor
+    ``x`` (0 where ``x`` is 0): 2**(e - 8) for ``x = m * 2**e``, m in
+    [0.5, 1), since bf16 keeps 8 significant bits."""
+    import torch
+
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def bf16_ulp_errors(got, want, exact) -> "tuple[float, float]":
+    """How far a bf16 result ``got`` lies from ``want``, another bf16
+    rounding of the same attention, in ULPs of the larger of the two
+    (at most 1 where both round the fp32 value once), and from ``exact``,
+    the fp32 attention of the same bf16 inputs, in ULPs of ``got``
+    (at most 1/2 for a round to nearest). ``FA_FP32_SLACK`` is taken off
+    each difference first. A bf16 attention that scores, keeps softmax
+    or stores in bf16 past one rounding, or truncates, leaves these
+    bounds, where 2e-2 absolute would not see it at S = 4096 (the
+    outputs there are about 2e-2)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    excess = ((g - w).abs() - FA_FP32_SLACK).clamp_min(0)
+    vs_want = excess / bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    excess = ((g - exact).abs() - FA_FP32_SLACK).clamp_min(0)
+    vs_exact = excess / bf16_ulp(g)
+    return (float(vs_want.nan_to_num(0.0).max()),
+            float(vs_exact.nan_to_num(0.0).max()))
+
+
+def kernel_fa(dev, gen, counted) -> "tuple[int, float, list]":
+    """K9 through its public op, once per call, against its plain version
+    and ``attention_ref`` on the same CUDA tensors (TF32 off), to 2e-5 in
+    fp32 and 2e-2 in bf16 (the reference test's tolerances): a Qwen3-1.7B
+    attention layer at prefill (H 16, KV 8, D 128, S = T = 4096, causal)
+    in fp32 and bf16 and a Gemma3-4B local layer at the widths of the
+    repo's ``configs/gemma3_4b.py`` (H 8, KV 4, window 1024, D 320 =
+    d_model / n_heads there, which sets no head_dim; the published model
+    has 256) at 4096 (the path: its launches are returned); the
+    reference test's five cases and its dtype case at blocks of 32; S
+    not divisible by the block; T != S without causal. A bf16 result is
+    held, besides, to one bf16 ULP of its plain version and of
+    ``attention_ref``, and to half a ULP of the fp32 attention of the same
+    bf16 inputs (``bf16_ulp_errors``). The plain version runs once per
+    case, timed by CUDA events. Returns the path's
+    launches, the largest error and the path's (name, q, k, v, kwargs,
+    plain ms)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref, flash_attention_plain)
+
+    def qkv(B, H, KV, S, T, D, dtype=torch.float32):
+        return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
+                     for shape in ((B, H, S, D), (B, KV, T, D),
+                                   (B, KV, T, D)))
+
+    bf16 = torch.bfloat16
+    n = PREFILL
+    path = [("qwen3-1.7b prefill fp32", qkv(1, 16, 8, n, n, 128),
+             dict(causal=True)),
+            ("qwen3-1.7b prefill bf16", qkv(1, 16, 8, n, n, 128, bf16),
+             dict(causal=True)),
+            ("gemma3-4b local layer fp32 (repo config D 320; "
+             "published 256)", qkv(1, 8, 4, n, n, 320),
+             dict(causal=True, window=1024))]
+    b32 = dict(block_q=32, block_k=32)
+    cases = [(f"reference test {B}x{H}/{KV}x{S}x{D} causal {c} window {w}",
+              qkv(B, H, KV, S, T, D), dict(causal=c, window=w, **b32))
+             for B, H, KV, S, T, D, c, w in (
+                 (2, 4, 2, 64, 64, 16, True, 0),
+                 (1, 8, 8, 128, 128, 32, True, 0),
+                 (2, 4, 1, 96, 96, 16, True, 32),
+                 (1, 2, 2, 64, 64, 16, False, 0),
+                 (2, 4, 2, 60, 60, 16, True, 0))]
+    cases += [("reference dtype case fp32", qkv(1, 4, 2, 64, 64, 16), b32),
+              ("reference dtype case bf16", qkv(1, 4, 2, 64, 64, 16, bf16),
+               b32),
+              ("S 1000 (blocks of 128 do not divide it), D 64",
+               qkv(2, 4, 2, 1000, 1000, 64), dict(causal=True)),
+              ("T 160 != S 96, not causal, blocks 40/64",
+               qkv(1, 2, 2, 96, 160, 16),
+               dict(causal=False, block_q=40, block_k=64))]
+    outs, launched = one_launch_each(
+        counted, "K9", [lambda c=c: flash_attention(*c[1], **c[2])
+                        for c in path])
+    more, _ = one_launch_each(
+        counted, "K9", [lambda c=c: flash_attention(*c[1], **c[2])
+                        for c in cases])
+    torch.cuda.synchronize()
+    max_err, timed = 0.0, []
+    for i, ((name, (q, k, v), kw), got) in enumerate(zip(path + cases,
+                                                         outs + more)):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        want = flash_attention_plain(q, k, v, **kw)
+        e.record()
+        e.synchronize()
+        mask_kw = {a: kw[a] for a in ("causal", "window") if a in kw}
+        ref = attention_ref(q, k, v, **mask_kw)
+        err = float((got.float() - want.float()).abs().max())
+        err_ref = float((got.float() - ref.float()).abs().max())
+        tol = FA_TOL[str(q.dtype)]
+        finite = bool(torch.isfinite(got).all())
+        ulps = {}
+        if q.dtype == torch.bfloat16:
+            exact = attention_ref(q.float(), k.float(), v.float(),
+                                  **mask_kw)
+            ulps["ulps_vs_plain"], ulps["ulps_vs_exact"] = \
+                bf16_ulp_errors(got, want, exact)
+            ulps["ulps_vs_attention_ref"], _ = bf16_ulp_errors(got, ref,
+                                                               exact)
+            del exact
+        emit("kernel_fa", case=name, q=list(q.shape), kv=list(k.shape),
+             dtype=str(q.dtype), **kw, max_abs_err=err,
+             max_abs_err_vs_attention_ref=err_ref, tol=tol, **ulps,
+             finite=finite, plain_ms=s.elapsed_time(e))
+        check(got.dtype == q.dtype and finite and err < tol
+              and err_ref < tol, f"{name}: K9 off its plain version "
+              f"({err}) or attention_ref ({err_ref}), tol {tol}")
+        check(not ulps or (ulps["ulps_vs_plain"] <= 1
+                           and ulps["ulps_vs_attention_ref"] <= 1
+                           and ulps["ulps_vs_exact"] <= 0.5),
+              f"{name}: bf16 K9 off by more than one rounding {ulps}")
+        max_err = max(max_err, err)
+        if i < len(path):
+            timed.append((name, (q, k, v), kw, s.elapsed_time(e)))
+    return launched, max_err, timed
+
+
+def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a masked attention computes: S * T, the
+    causal triangle, or the band of the window."""
+    if not causal:
+        return S * T
+    return sum(max(0, min(q + 1, T) - (max(0, q - window + 1) if window
+                                        else 0)) for q in range(S))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -639,11 +1013,19 @@ def main() -> int:
     from repro_torch.kernels.conv_stream import kernel as k6
     from repro_torch.kernels.conv_stream.kernel import conv2d_stream_raw
     from repro_torch.kernels.conv_stream.ref import conv2d_stream_plain
+    from repro_torch.kernels.flash_attention import kernel as k9
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fused_conv_pool import kernel as k5
     from repro_torch.kernels.fused_conv_pool.kernel import \
         fused_conv_pool_raw
     from repro_torch.kernels.fused_conv_pool.ref import \
         fused_conv_pool_plain
+    from repro_torch.kernels.maxpool_stream import kernel as k7
+    from repro_torch.kernels.maxpool_stream.ops import maxpool_stream
+    from repro_torch.kernels.maxpool_stream.ref import maxpool_stream_plain
+    from repro_torch.kernels.quant_matmul import kernel as k8
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_plain
     from repro_torch.kernels.wave_replay import graph as k2
     from repro_torch.kernels.wave_replay import ops
     from repro_torch.kernels.wave_replay.graph import (
@@ -677,11 +1059,13 @@ def main() -> int:
     emit("card", nvidia_smi=smi, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, fp32_peak_flops=flops_peak,
-         int8_peak_ops=INT8_PEAK_OPS, mem_bytes_per_s=bw_peak)
+         bf16_peak_flops=BF16_PEAK_FLOPS, int8_peak_ops=INT8_PEAK_OPS,
+         mem_bytes_per_s=bw_peak)
 
     # 2. build: one nvcc per source, all started together
     stems = ("wave_replay", "wave_replay_q", "wave_replay_graph",
-             "wave_replay_graph_q", "conv_stream", "fused_conv_pool")
+             "wave_replay_graph_q", "conv_stream", "fused_conv_pool",
+             "maxpool_stream", "quant_matmul", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         reports = dict(zip(stems, pool.map(_build.build, stems)))
@@ -856,18 +1240,25 @@ def main() -> int:
         return serve
 
     counted = {"K1": ops, "K3": ops_q, "K2": k2, "K4": k4, "K5": k5,
-               "K6": k6}
+               "K6": k6, "K7": k7, "K8": k8, "K9": k9}
+    served_k789 = {"K7": 0, "K8": 0, "K9": 0, "forwards": 0}
 
     def drive(s):
         """One 32-request run with every kernel's count set to 0 just
         before and read just after: (outputs, seconds, batched calls,
-        K1, K3 launches, every kernel's count)."""
+        K1, K3 launches, every kernel's count). No serving path runs K7,
+        K8 or K9."""
         for k in counted.values():
             k.reset_launch_count()
         calls0 = s.calls
         t0 = time.perf_counter()
         outs = serving(s)()
         n = {name: k.launch_count() for name, k in counted.items()}
+        for name in ("K7", "K8", "K9"):
+            served_k789[name] += n[name]
+        served_k789["forwards"] += s.calls - calls0
+        check(n["K7"] == n["K8"] == n["K9"] == 0,
+              f"a serving path launched {n}")
         return (outs, time.perf_counter() - t0, s.calls - calls0,
                 n["K1"], n["K3"], n)
 
@@ -1000,7 +1391,13 @@ def main() -> int:
     fcp_calls = k5_calls(alex, weights, env8)
     err_fcp = kernel_fcp(dev, gen, fcp_calls)
 
-    # 14-15. the layer executors: serve the same requests in wave and scan
+    # 14-16. the streaming max-pool (K7), the int8 matmul (K8) and flash
+    # attention (K9) through their public ops, one launch per call
+    launches_mp, mp_path = kernel_mp(dev, gen, counted)
+    launches_qmm, qmm_path = kernel_qmm(dev, gen, counted)
+    launches_fa, err_fa, fa_path = kernel_fa(dev, gen, counted)
+
+    # 17-18. the layer executors: serve the same requests in wave and scan
     # mode with each backend pair; (K6, K5) launches per batched call
     per_call = {("wave", "xla", "xla"): (0, 0),
                 ("wave", "pallas", "xla"): (257, 0),
@@ -1075,7 +1472,7 @@ def main() -> int:
             if pb == "fused":
                 err_served["K5"] = max(err_served["K5"], err_ws)
 
-    # 16. timing, per AlexNet layer and chain at batch 8, and the served
+    # 19. timing, per AlexNet layer and chain at batch 8, and the served
     # rates
     rows = []
     for name, (kp, (x, w, b), (xp, wp, bias, table, rp)) in \
@@ -1214,11 +1611,38 @@ def main() -> int:
                 fn(*c)
         return run
 
-    def device_ms(fn, kernel_name, runs=3):
-        """Device time of ``kernel_name`` per ``fn()``, by the profiler."""
-        prof = profiled(lambda: (fn(), torch.cuda.synchronize()), runs)
-        return sum(v for k, v in prof["device_ms_by_kernel"].items()
-                   if kernel_name in k) / runs
+    def device_ms(fn, kernel_name, launches, runs=3, windows=4):
+        """``device_ms``: the device time of ``kernel_name`` per ``fn()``,
+        which launches it ``launches`` times, by the profiler over
+        ``runs`` calls: the mean over the launches it recorded, times
+        ``launches`` (a sum over the calls undercounts when the window
+        misses a launch); and the launches recorded and made. A window
+        that recorded none of a call's launches (seen once for a 60 µs
+        K8 call) is profiled again, up to ``windows`` windows; the
+        windows taken are reported."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        for window in range(1, windows + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+            hits = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and kernel_name in e.key]
+            recorded = sum(e.count for e in hits)
+            if recorded > 0:
+                break
+        check(recorded > 0, f"the profiler recorded no {kernel_name} in "
+              f"{windows} windows")
+        return dict(device_ms=sum(e.self_device_time_total for e in hits)
+                    / 1e3 / recorded * launches,
+                    device_launches_recorded=recorded,
+                    device_launches_made=runs * launches,
+                    device_windows=window)
 
     def summed_bound(work):
         """The bounds of a sequence of calls, each ``(ops, bytes)``,
@@ -1253,7 +1677,7 @@ def main() -> int:
         b_k6 = summed_bound(work)
         rows_k6.append(dict(
             kernel="K6", path=path, launches_per_forward=len(args), ms=ms,
-            device_ms=device_ms(run_k6, "conv_stream_kernel"),
+            **device_ms(run_k6, "conv_stream_kernel", len(args)),
             plain_ms=median_ms(replay(args, lambda x, w, st:
                                       conv2d_stream_plain(x, w, stride=st)),
                                groups=3, per_group=1, warm=1),
@@ -1291,13 +1715,86 @@ def main() -> int:
     row_k5 = dict(
         kernel="K5", path="wave or scan, pool_backend=fused (conv1, conv2, "
         "conv5)", launches_per_forward=len(k5_args), ms=ms,
-        device_ms=device_ms(run_k5, "fused_conv_pool_kernel"),
+        **device_ms(run_k5, "fused_conv_pool_kernel", len(k5_args)),
         plain_ms=median_ms(replay(k5_args, lambda x, w, b, kw:
                                   fused_conv_pool_plain(x, w, b, **kw)),
                            groups=5, per_group=2, warm=1),
         library_ms=median_ms(replay(lib_args, library_k5)), **b_k5,
         achieved_tflops=b_k5["gflop"] / ms)
     emit("timing", **row_k5, nvidia_smi=smi)
+
+    # K7, K8 and K9 per public-op call on their paths' operands; no serving
+    # path launches them (drive() checks it)
+    def own_op_row(kernel, name, fn, plain_ms, library_ms, work, **extra):
+        ms = median_ms(fn)
+        return dict(kernel=kernel, case=name, ms=ms,
+                    **device_ms(fn, kernel_names[kernel], 1),
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    **bound(*work), launches_per_call=1,
+                    launches_per_alexnet_forward=served_k789[kernel]
+                    / served_k789["forwards"], **extra)
+
+    kernel_names = {"K7": "maxpool_stream_kernel",
+                    "K8": "quant_matmul_kernel",
+                    "K9": "flash_attention_kernel"}
+    rows_k7 = []
+    for name, x, kw in mp_path:
+        p, ps = kw["pool"], kw["stride"]
+        ho, wo = (x.shape[1] - p) // ps + 1, (x.shape[2] - p) // ps + 1
+        out_numel = x.shape[0] * ho * wo * x.shape[3]
+        x_nchw = x.permute(0, 3, 1, 2)               # channels-last view
+        rows_k7.append(own_op_row(
+            "K7", name, lambda: maxpool_stream(x, **kw),
+            median_ms(lambda: maxpool_stream_plain(x, **kw), groups=3,
+                      per_group=1, warm=1),
+            median_ms(lambda: F.max_pool2d(x_nchw, p, ps)),
+            (out_numel * p * p, flops_peak,
+             x.element_size() * (x.numel() + out_numel), bw_peak),
+            library="F.max_pool2d on the channels-last NCHW view"))
+        emit("timing", **rows_k7[-1], nvidia_smi=smi)
+    rows_k8 = []
+    for name, xq, wq, sx, sw in qmm_path:
+        M, K = xq.shape
+        N = wq.shape[1]
+        # yardstick: torch._int_mm (which wants more than 16 rows, so the
+        # head's 8 are padded to 32) and the same two scale multiplies
+        a = F.pad(xq, (0, 0, 0, max(0, 32 - M))).contiguous()
+        b = wq.t().contiguous().t()                  # column-major
+        rows_k8.append(own_op_row(
+            "K8", name, lambda: quant_matmul(xq, wq, sx, sw),
+            median_ms(lambda: quant_matmul_plain(xq, wq, sx, sw),
+                      groups=3, per_group=1, warm=1),
+            median_ms(lambda: torch._int_mm(a, b).float() * sx
+                      * sw[None, :]),
+            (2 * M * N * K, INT8_PEAK_OPS,
+             M * K + K * N + 4 + 4 * N + 4 * M * N, bw_peak),
+            m_k_n=[M, K, N], library="torch._int_mm + 2 scale multiplies"
+            + (f" (M padded {M} -> 32)" if M < 32 else "")))
+        emit("timing", **rows_k8[-1], nvidia_smi=smi)
+    rows_k9 = []
+    for name, (q, k, v), kw, plain_ms in fa_path:
+        B, H, S, D = q.shape
+        T = k.shape[2]
+        window = kw.get("window", 0)
+        pairs = attention_pairs(S, T, kw["causal"], window)
+        if window:
+            qp = torch.arange(S, device=dev)[:, None]
+            kp = torch.arange(T, device=dev)[None, :]
+            mask = (kp <= qp) & (kp > qp - window)
+            lib_kw = dict(attn_mask=mask)
+        else:
+            lib_kw = dict(is_causal=kw["causal"])
+        rows_k9.append(own_op_row(
+            "K9", name, lambda: flash_attention(q, k, v, **kw), plain_ms,
+            median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True, **lib_kw)),
+            (4 * B * H * D * pairs, flops_peak if q.dtype == torch.float32
+             else BF16_PEAK_FLOPS,
+             q.element_size() * (2 * q.numel() + 2 * k.numel()), bw_peak),
+            pairs=pairs, library="F.scaled_dot_product_attention"
+            + (" with a boolean window mask" if window else
+               ", is_causal")))
+        emit("timing", **rows_k9[-1], nvidia_smi=smi)
 
     for mode, cb, pb in (("wave", "xla", "xla"), ("wave", "pallas", "xla"),
                          ("wave", "pallas", "fused"),
@@ -1351,7 +1848,19 @@ def main() -> int:
         entry("conv_stream_f32", "src/repro_torch/csrc/conv_stream.cu",
               "src/repro/kernels/conv_stream/kernel.py:29",
               served[("wave", "pallas", "xla")][1]["K6"],
-              max(err_cs, err_served["K6"]), rows_k6[:1])]}))
+              max(err_cs, err_served["K6"]), rows_k6[:1]),
+        # K7, K8: every comparison above is equality; launches and times
+        # over each one's path (AlexNet's three pools, four int8 gemms;
+        # K9: the Qwen3 prefill at fp32 and bf16 and the Gemma3 layer)
+        entry("maxpool_stream", "src/repro_torch/csrc/maxpool_stream.cu",
+              "src/repro/kernels/maxpool_stream/kernel.py:20", launches_mp,
+              0, rows_k7),
+        entry("quant_matmul_i8", "src/repro_torch/csrc/quant_matmul.cu",
+              "src/repro/kernels/quant_matmul/kernel.py:19", launches_qmm,
+              0, rows_k8),
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:25", launches_fa,
+              err_fa, rows_k9)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
